@@ -1,0 +1,383 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``sdr_tpu_torch``) on one NVIDIA GPU.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, one line of output each (any failure raises and exits non-zero):
+
+1. card and build: requires CUDA, prints the card's name and power limit,
+   and builds the CUDA kernels from ``sdr_tpu_torch/csrc`` with nvcc;
+2. kernels against their plain PyTorch versions at the main path's shapes:
+   K1 ``fir_frontend_u8`` (C=1, C=512, a short block, a 4-block chain),
+   K2 ``pll_angles`` (C=1 x 2 arms, 3 chained blocks), K3 ``pll_mixer``
+   (C=512 x 2 arms);
+3. the main path: ``sdr_tpu_torch.receive`` on a synthesized 1 s mode-0
+   stereo+RDS capture (stereo separation and RDS info words checked
+   against what was transmitted), then a 512-channel ``Receiver`` for 4
+   blocks whose channel 0 must match a single-channel run; every kernel's
+   launch count in this phase must be above zero;
+4. timing with CUDA events: block time and IQ rate at C=1 and C=512, and
+   each kernel against its plain version.
+
+The last three lines are the card's name and power limit as ``nvidia-smi``
+reports them, a JSON object with one entry per kernel, and
+``{"ok": true, "device": {...}}``.  TF32 is turned off.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import sdr_tpu_torch
+from sdr_tpu_torch import stimulus
+from sdr_tpu_torch.kernels import build
+from sdr_tpu_torch.models import receiver as rx
+from sdr_tpu_torch.ops import fir_frontend, pll_cuda
+from sdr_tpu_torch.ops import pll as tpll
+from sdr_tpu import config as cfg
+from sdr_tpu.utils import synth
+
+ROOT = Path(__file__).resolve().parent
+MODE = 0
+SEED = 20261016
+K1_ATOL = 1e-5    # fp32 FIR, two summation orders
+PLL_ATOL = 1e-4   # the JAX package's gate for its PLL kernel
+ROW0_ATOL = 1e-4  # channel 0 of C=512 (K3) against a C=1 run (K2)
+SEP_DB = 30.0
+
+KERNELS = {
+    "fir_frontend_u8": dict(
+        route="cuda", source="sdr_tpu_torch/csrc/fir_frontend_u8.cu",
+        replaces="sdr_tpu/ops/pallas_fir_mxu.py:284",
+        counter=fir_frontend.fir_frontend_u8),
+    "pll_angles": dict(
+        route="cuda", source="sdr_tpu_torch/csrc/pll.cu",
+        replaces="sdr_tpu/ops/pallas_pll.py:101",
+        counter=pll_cuda.pll_angles),
+    "pll_mixer": dict(
+        route="cuda", source="sdr_tpu_torch/csrc/pll.cu",
+        replaces="sdr_tpu/ops/pallas_pll.py:356",
+        counter=pll_cuda.pll_mixer),
+}
+
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds of ``fn()`` on the device, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max())
+
+
+# --- phase 1 ----------------------------------------------------------------
+
+
+def phase_card_and_build() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this script needs an NVIDIA GPU")
+    rx.pin_fp32_matmul()
+    smi = card()
+    print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+    path, secs = build.build()
+    build.load()
+    ptxas = [ln.strip() for ln in
+             (path.parent / "build.log").read_text().splitlines()
+             if "Used" in ln or "Compiling entry" in ln]
+    print(f"build: {path.relative_to(ROOT)} compiled in {secs:.1f} s; "
+          + " | ".join(ptxas))
+    return smi
+
+
+# --- phase 2 ----------------------------------------------------------------
+
+
+def _u8_case(rng, c: int, n: int, k: int):
+    u8 = rng.integers(0, 256, size=(c, 2 * n), dtype=np.uint8)
+    st = rng.integers(-128, 128, size=(c, 2, k - 1)).astype(np.float32) / 128
+    return (torch.from_numpy(u8).cuda(), torch.from_numpy(st).cuda())
+
+
+def check_k1(h: torch.Tensor, rng) -> dict:
+    """K1 against its plain version: outputs within K1_ATOL, states
+    exactly equal."""
+    mc = cfg.get_mode_config(MODE)
+    n_block = mc.default_block_size(True) // 2          # 57,600 I/Q pairs
+    k, d = h.shape[0], mc.rf_decim
+    worst, shapes = 0.0, {}
+    for name, c, n in (("C=1", 1, n_block), ("C=512", 512, n_block),
+                       ("short N=140", 2, 140)):
+        iq, st = _u8_case(rng, c, n, k)
+        yk, sk = fir_frontend.fir_frontend_u8(iq, h, st, d)
+        yp, sp = fir_frontend.fir_frontend_u8_plain(iq, h, st, d)
+        torch.cuda.synchronize()
+        err = max_err(yk, yp)
+        if err > K1_ATOL or not torch.equal(sk, sp):
+            raise AssertionError(f"K1 {name}: max err {err:.3g} > {K1_ATOL} "
+                                 f"or state mismatch")
+        worst = max(worst, err)
+        shapes[name] = (iq, st)
+    # a 4-block chain, each side carrying its own state
+    iq, st = _u8_case(rng, 2, 4 * 5760, k)
+    sk = sp = st
+    for b in range(4):
+        blk = iq[:, b * 2 * 5760:(b + 1) * 2 * 5760].contiguous()
+        yk, sk = fir_frontend.fir_frontend_u8(blk, h, sk, d)
+        yp, sp = fir_frontend.fir_frontend_u8_plain(blk, h, sp, d)
+        err = max_err(yk, yp)
+        if err > K1_ATOL or not torch.equal(sk, sp):
+            raise AssertionError(f"K1 chain block {b}: max err {err:.3g} or "
+                                 "state mismatch")
+        worst = max(worst, err)
+    print(f"K1 fir_frontend_u8 vs plain: C=1, C=512, short block, 4-block "
+          f"chain: max abs err {worst:.3g} (atol {K1_ATOL}), states equal")
+    return {"max_abs_err": worst, "cases": shapes}
+
+
+def _pll_inputs(rng, c: int, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pilot-like and RDS-carrier-like PLL inputs (c, 2, n) with random
+    phases and noise, plus random mixer operands."""
+    x = stimulus.pll_tones(rng, c, n, cfg.get_mode_config(MODE).if_fs)
+    mix = rng.standard_normal((c, 2, n))
+    return (torch.from_numpy(x).cuda(),
+            torch.tensor(mix, dtype=torch.float32).cuda())
+
+
+def _pll_setup(x: torch.Tensor, mixer: bool):
+    """Lane layout, constants and initial carry of one PLL call."""
+    mc = cfg.get_mode_config(MODE)
+    st0 = rx.init_state(mc, (x.shape[0],), device=x.device)
+    st = tpll.stack_arms([st0.pilot_pll, st0.rds_pll])
+    ly = pll_cuda.LaneLayout(x, (rx.pilot_pll_params(mc),
+                                 rx.rds_pll_params(mc)))
+    return ly, ly.consts(mixer), ly.carry0(st, mixer)
+
+
+def check_k2(rng) -> dict:
+    """K2 against its plain version over 3 chained 5,760-sample blocks at
+    C=1 x 2 arms (pilot + RDS carrier)."""
+    n = 5760
+    x, _ = _pll_inputs(rng, 1, 3 * n)
+    ly, consts, ck = _pll_setup(x[..., :n], mixer=False)
+    cp = ck
+    worst = 0.0
+    for b in range(3):
+        xs = ly.time_major(x[..., b * n:(b + 1) * n])
+        ak, ck = pll_cuda.pll_angles(xs, ck, consts)
+        ap, cp = pll_cuda.pll_angles_plain(xs, cp, consts)
+        worst = max(worst, max_err(ak, ap), max_err(ck, cp))
+    if worst > PLL_ATOL:
+        raise AssertionError(f"K2: max err {worst:.3g} > {PLL_ATOL}")
+    print(f"K2 pll_angles vs plain: C=1 x 2 arms, 3 chained blocks: max abs "
+          f"err {worst:.3g} (atol {PLL_ATOL}; 0 means bit-equal)")
+    return {"max_abs_err": worst, "case": (xs, ck, consts)}
+
+
+def check_k3(rng) -> dict:
+    """K3 against its plain version: C=512 x 2 arms, one 5,760 block."""
+    n = 5760
+    x, mix = _pll_inputs(rng, 512, n)
+    ly, consts, c0 = _pll_setup(x, mixer=True)
+    xs, ms = ly.time_major(x), ly.time_major(mix)
+    mk, ck = pll_cuda.pll_mixer(xs, ms, c0, consts)
+    mp, cp = pll_cuda.pll_mixer_plain(xs, ms, c0, consts)
+    worst = max(max_err(mk, mp), max_err(ck, cp))
+    if worst > PLL_ATOL:
+        raise AssertionError(f"K3: max err {worst:.3g} > {PLL_ATOL}")
+    print(f"K3 pll_mixer vs plain: C=512 x 2 arms, 1 block: max abs err "
+          f"{worst:.3g} (atol {PLL_ATOL}; 0 means bit-equal)")
+    return {"max_abs_err": worst, "case": (xs, ms, c0, consts)}
+
+
+# --- phase 3 ----------------------------------------------------------------
+
+
+def _tone_power(x: np.ndarray, fs: float, f: float) -> float:
+    t = np.arange(len(x)) / fs
+    return float(np.abs(np.mean(x * np.exp(-2j * np.pi * f * t))) ** 2)
+
+
+def _separation_db(left, right, fs, tone_l, tone_r, skip=6000):
+    l, r = np.asarray(left, np.float64)[skip:], np.asarray(right,
+                                                           np.float64)[skip:]
+    sep_l = _tone_power(l, fs, tone_l) / max(_tone_power(l, fs, tone_r),
+                                             1e-30)
+    sep_r = _tone_power(r, fs, tone_r) / max(_tone_power(r, fs, tone_l),
+                                             1e-30)
+    return 10 * math.log10(sep_l), 10 * math.log10(sep_r)
+
+
+def _serving_batch(iq_u8: np.ndarray, c: int, n_bytes: int, rng):
+    """(c, n_bytes): channel 0 is the start of the capture, the others the
+    same station from random whole-I/Q-pair offsets."""
+    offs = 2 * rng.integers(1, (len(iq_u8) - n_bytes) // 2, size=c - 1)
+    return np.stack([iq_u8[:n_bytes]]
+                    + [iq_u8[o:o + n_bytes] for o in offs])
+
+
+def phase_main_path(rng) -> dict:
+    mc = cfg.get_mode_config(MODE)
+    res = synth.synthesize_fm(duration_s=1.0, mode=MODE, seed=SEED,
+                              with_rds=True)
+    bs = mc.default_block_size(True)
+    batch = _serving_batch(res.iq_u8, 512, 4 * bs, rng)
+
+    for spec in KERNELS.values():
+        spec["counter"].launches = 0
+    out = sdr_tpu_torch.receive(res.iq_u8, mode=MODE, stereo=True, rds=True,
+                                device="cuda")
+    r512 = rx.Receiver(MODE, stereo=True, with_rds=True, batch_shape=(512,),
+                       device="cuda")
+    outs512 = r512.run(batch)
+    torch.cuda.synchronize()
+    launches = {name: spec["counter"].launches
+                for name, spec in KERNELS.items()}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the main path never ran: "
+                             f"{launches}")
+
+    sep_l, sep_r = _separation_db(out.left, out.right, mc.audio_fs, 800.0,
+                                  1500.0)
+    if not (np.all(np.isfinite(out.left)) and sep_l > SEP_DB
+            and sep_r > SEP_DB):
+        raise AssertionError(f"stereo separation L {sep_l:.1f} dB, R "
+                             f"{sep_r:.1f} dB (need > {SEP_DB})")
+    sent = {tuple(w) for g in res.rds_info_bits for w in g}
+    words = [tuple(w) for w in out.rds_info_words]
+    hits = sum(w in sent for w in words)
+    n_groups = len(res.rds_info_bits)
+    if hits != len(words) or len(words) < n_groups:
+        raise AssertionError(f"RDS: {hits} of {len(words)} info words were "
+                             f"transmitted; need all, and >= {n_groups}")
+    print(f"main path: receive() 1 s capture: separation L {sep_l:.1f} dB, "
+          f"R {sep_r:.1f} dB; RDS {len(words)} frames, all info words "
+          f"transmitted ({n_groups} groups sent); C=512 x 4 blocks; "
+          f"launches {launches}")
+
+    # channel 0 of the batch against a single-channel run of the same bytes
+    r1 = rx.Receiver(MODE, stereo=True, with_rds=True, device="cuda")
+    outs1 = r1.run(batch[0])
+    errs = []
+    for b in range(outs1.left.shape[0]):
+        e = max(max_err(getattr(outs512, f)[b, 0], getattr(outs1, f)[b])
+                for f in ("fm_demod", "mono", "left", "right", "rds_symbols"))
+        if not e <= ROW0_ATOL:
+            raise AssertionError(f"C=512 channel 0 vs C=1, block {b}: max "
+                                 f"err {e:.3g} > {ROW0_ATOL}")
+        errs.append(e)
+    print("main path: C=512 channel 0 vs C=1 per block max abs err "
+          + ", ".join(f"{e:.3g}" for e in errs) + f" (atol {ROW0_ATOL})")
+    return {"launches": launches}
+
+
+# --- phase 4 ----------------------------------------------------------------
+
+
+def phase_timing(smi: str, k1: dict, k2: dict, k3: dict) -> dict:
+    mc = cfg.get_mode_config(MODE)
+    bs = mc.default_block_size(True)
+    n_iq = bs // 2
+    rng = np.random.default_rng(SEED + 1)
+    for c, reps in ((1, 30), (512, 10)):
+        r = rx.Receiver(MODE, stereo=True, with_rds=True,
+                        batch_shape=(c,) if c > 1 else (), device="cuda")
+        blk = torch.from_numpy(rng.integers(
+            0, 256, size=((c,) if c > 1 else ()) + (bs,),
+            dtype=np.uint8)).cuda()
+        ms = cuda_ms(lambda: r.process(blk), reps, warmup=3)
+        print(f"timing [{smi}]: mode-0 stereo+RDS block at C={c}: "
+              f"{ms:.3f} ms/block, {c * n_iq / ms / 1e3:.2f} IQ Msamples/s "
+              f"({24.0 / ms * c:.1f}x real time over all channels)")
+    h = rx.design_coeffs(mc, device="cuda").rf
+    times = {}
+    for name in ("C=1", "C=512"):
+        iq, st = k1["cases"][name]
+        kms = cuda_ms(lambda: fir_frontend.fir_frontend_u8(iq, h, st, 10), 50)
+        pms = cuda_ms(lambda: fir_frontend.fir_frontend_u8_plain(iq, h, st,
+                                                                 10), 20)
+        print(f"timing [{smi}]: K1 fir_frontend_u8 {name}: kernel {kms:.4f} "
+              f"ms, plain {pms:.4f} ms")
+        times["fir_frontend_u8"] = (kms, pms)
+    xs, c0, consts = k2["case"]
+    kms = cuda_ms(lambda: pll_cuda.pll_angles(xs, c0, consts), 20)
+    pms = cuda_ms(lambda: pll_cuda.pll_angles_plain(xs, c0, consts), 2)
+    print(f"timing [{smi}]: K2 pll_angles C=1 x 2 arms x 5760: kernel "
+          f"{kms:.4f} ms, plain {pms:.4f} ms")
+    times["pll_angles"] = (kms, pms)
+    xs, ms_, c0, consts = k3["case"]
+    kms = cuda_ms(lambda: pll_cuda.pll_mixer(xs, ms_, c0, consts), 10)
+    pms = cuda_ms(lambda: pll_cuda.pll_mixer_plain(xs, ms_, c0, consts), 1)
+    print(f"timing [{smi}]: K3 pll_mixer C=512 x 2 arms x 5760: kernel "
+          f"{kms:.4f} ms, plain {pms:.4f} ms")
+    times["pll_mixer"] = (kms, pms)
+    # each PLL kernel at the other batch too (kernel only): separates what
+    # the lane count costs from what the NCO + mixer work costs
+    for c, mixer in ((512, False), (1, True)):
+        x, mix = _pll_inputs(rng, c, 5760)
+        ly, consts, c0 = _pll_setup(x, mixer)
+        xs = ly.time_major(x)
+        if mixer:
+            ms_ = ly.time_major(mix)
+            kms = cuda_ms(lambda: pll_cuda.pll_mixer(xs, ms_, c0, consts), 10)
+        else:
+            kms = cuda_ms(lambda: pll_cuda.pll_angles(xs, c0, consts), 10)
+        print(f"timing [{smi}]: {'K3 pll_mixer' if mixer else 'K2 pll_angles'}"
+              f" C={c} x 2 arms x 5760: kernel {kms:.4f} ms")
+    return times
+
+
+def main() -> int:
+    smi = phase_card_and_build()
+    rng = np.random.default_rng(SEED)
+    h = rx.design_coeffs(cfg.get_mode_config(MODE), device="cuda").rf
+    k1 = check_k1(h, rng)
+    k2 = check_k2(rng)
+    k3 = check_k3(rng)
+    main_path = phase_main_path(rng)
+    times = phase_timing(smi, k1, k2, k3)
+    errs = {"fir_frontend_u8": k1["max_abs_err"],
+            "pll_angles": k2["max_abs_err"], "pll_mixer": k3["max_abs_err"]}
+    kernels = [{"name": name, "route": spec["route"],
+                "source": spec["source"], "replaces": spec["replaces"],
+                "launches": main_path["launches"][name],
+                "max_abs_err": errs[name], "ms": times[name][0],
+                "plain_ms": times[name][1]}
+               for name, spec in KERNELS.items()]
+    print(card())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,13 @@
+"""Receiver models of the PyTorch port: the per-block DAG and the host-side
+RDS decode."""
+
+from sdr_tpu_torch.models import rds_decode  # noqa: F401
+from sdr_tpu_torch.models.receiver import (  # noqa: F401
+    BlockOutputs,
+    Receiver,
+    ReceiverCoeffs,
+    ReceiverState,
+    design_coeffs,
+    init_state,
+    process_block,
+)

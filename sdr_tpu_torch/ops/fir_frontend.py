@@ -1,0 +1,106 @@
+"""RF front-end on raw u8 I/Q: kernel K1 and its plain version.
+
+Port of ``sdr_tpu/ops/pallas_fir_mxu.py::fir_frontend_u8_pallas_int``.
+Contract: interleaved uint8 ``(..., 2N)`` in, taps ``h`` (K,) and the
+stacked I/Q overlap-save state ``(..., 2, K-1)`` (f32, u8-normalized), out
+``((..., 2, N/D) f32, (..., 2, K-1) f32 new state)``.
+
+On a CUDA tensor :func:`fir_frontend_u8` launches the hand-written kernel
+``csrc/fir_frontend_u8.cu``, which reads the raw bytes and keeps the
+deinterleaved, normalized signal out of device memory.  On a CPU tensor it
+runs :func:`fir_frontend_u8_plain`, the same function in plain PyTorch.
+
+The kernel reads the carried state as f32 directly (the TPU kernel turns
+it back into bytes, which is exact only for a u8-normalized state), and the
+new state is the exact normalized tail of ``[state, block]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sdr_tpu_torch.kernels import build
+from sdr_tpu_torch.ops import fir
+
+
+def normalize_u8(x: torch.Tensor) -> torch.Tensor:
+    """(x - 128) / 128 as float32, exact for every byte."""
+    return (x.to(torch.float32) - 128.0) * (1.0 / 128.0)
+
+
+def _deinterleave(x: torch.Tensor) -> torch.Tensor:
+    """(..., 2N) interleaved -> (..., 2, N)."""
+    return x.reshape(x.shape[:-1] + (x.shape[-1] // 2, 2)).movedim(-1, -2)
+
+
+def _u8_tail(iq_u8: torch.Tensor, st2: torch.Tensor) -> torch.Tensor:
+    """The last K-1 samples of ``[state, normalize(block)]`` per arm, also
+    for a block shorter than K-1 (it then keeps part of the state)."""
+    km1 = st2.shape[-1]
+    n = iq_u8.shape[-1] // 2
+    take = min(n, km1)
+    block_tail = normalize_u8(_deinterleave(iq_u8[..., 2 * (n - take):]))
+    return torch.cat([st2[..., take:], block_tail], dim=-1)
+
+
+def _check(iq_u8: torch.Tensor, h: torch.Tensor, st2: torch.Tensor,
+           decim: int) -> None:
+    if iq_u8.dtype != torch.uint8:
+        raise TypeError(f"iq must be uint8, got {iq_u8.dtype}")
+    if h.dtype != torch.float32 or st2.dtype != torch.float32:
+        raise TypeError("taps and state must be float32")
+    if h.ndim != 1:
+        raise ValueError(f"taps must be 1-D, got shape {tuple(h.shape)}")
+    want = iq_u8.shape[:-1] + (2, h.shape[0] - 1)
+    if iq_u8.shape[-1] % 2 or tuple(st2.shape) != want:
+        raise ValueError(f"iq {tuple(iq_u8.shape)} must be interleaved and "
+                         f"state {tuple(st2.shape)} must be {want}")
+    n = iq_u8.shape[-1] // 2
+    if n == 0 or n % decim:
+        raise ValueError(f"block of {n} samples is not a positive multiple "
+                         f"of the decimation {decim}")
+
+
+def fir_frontend_u8_plain(iq_u8: torch.Tensor, h: torch.Tensor,
+                          st2: torch.Tensor, decim: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1: deinterleave, normalize, then the banded-matmul
+    decimating FIR in fp32.  Runs on any device."""
+    _check(iq_u8, h, st2, decim)
+    x2 = normalize_u8(_deinterleave(iq_u8))
+    return fir.fir_block_decim_mm(x2, h, st2, decim)
+
+
+def fir_frontend_u8(iq_u8: torch.Tensor, h: torch.Tensor, st2: torch.Tensor,
+                    decim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1: the RF front-end FIR of raw u8 I/Q (see the module docstring).
+
+    A CUDA tensor launches the kernel and a CPU tensor takes the plain
+    version; any other device raises."""
+    if iq_u8.device.type == "cpu":
+        return fir_frontend_u8_plain(iq_u8, h, st2, decim)
+    if iq_u8.device.type != "cuda":
+        raise RuntimeError(f"no K1 kernel for device {iq_u8.device}")
+    _check(iq_u8, h, st2, decim)
+    if h.device != iq_u8.device or st2.device != iq_u8.device:
+        raise ValueError("iq, taps and state must be on one device")
+    if not (iq_u8.is_contiguous() and h.is_contiguous()
+            and st2.is_contiguous()):
+        raise ValueError("iq, taps and state must be contiguous")
+    k = h.shape[0]
+    n = iq_u8.shape[-1] // 2
+    lead = iq_u8.shape[:-1]
+    batch = iq_u8.numel() // (2 * n)
+    y = torch.empty(lead + (2, n // decim), dtype=torch.float32,
+                    device=iq_u8.device)
+    lib = build.load()
+    with torch.cuda.device(iq_u8.device):
+        rc = lib.sdr_fir_frontend_u8(
+            iq_u8.data_ptr(), st2.data_ptr(), h.data_ptr(), y.data_ptr(),
+            batch, n, k, decim, torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "fir_frontend_u8")
+    fir_frontend_u8.launches += 1
+    return y, _u8_tail(iq_u8, st2)
+
+
+fir_frontend_u8.launches = 0

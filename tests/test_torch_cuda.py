@@ -1,0 +1,122 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA GPU: a CUDA
+kernel has no CPU mode.  The file imports no JAX, so it runs on the GPU
+machine, from the repository root:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py configures JAX.)
+
+Tolerances: K1 at 1e-5 (two fp32 summation orders; the carried tails are
+exact and must be equal); K2/K3 at the JAX package's PLL gate of 1e-4,
+though with every rounding explicit they are expected bit-equal; the
+receiver on the card against the receiver on the CPU at 1e-5 on fm_demod
+and 5e-3 on the PLL-driven arms (the FIR products sum in other orders on
+the two devices, and the PLL lock transient amplifies ulps).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sdr_tpu import config as cfg
+from sdr_tpu.golden import filters as gfilt
+from sdr_tpu.utils import synth
+from sdr_tpu_torch import stimulus
+from sdr_tpu_torch.models import receiver as prx
+from sdr_tpu_torch.ops import fir_frontend, pll_cuda
+from sdr_tpu_torch.ops import pll as tpll
+
+pytestmark = pytest.mark.cuda
+
+K1_ATOL = 1e-5
+PLL_ATOL = 1e-4
+MC = cfg.get_mode_config(0)
+
+
+@pytest.fixture
+def dev():
+    """The CUDA device; skips without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    prx.pin_fp32_matmul()
+    return torch.device("cuda")
+
+
+def _close(a, b, atol):
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                               atol=atol)
+
+
+def _lanes_case(c: int, n: int, mixer: bool, device):
+    """Time-major PLL inputs for c channels x 2 arms (pilot, RDS)."""
+    rng = np.random.default_rng(31 + c)
+    x = torch.from_numpy(stimulus.pll_tones(rng, c, n, MC.if_fs)).to(device)
+    st0 = prx.init_state(MC, (c,), device=device)
+    st = tpll.stack_arms([st0.pilot_pll, st0.rds_pll])
+    ly = pll_cuda.LaneLayout(x, (prx.pilot_pll_params(MC),
+                                 prx.rds_pll_params(MC)))
+    mix = torch.tensor(rng.standard_normal((n, c * 2)), dtype=torch.float32,
+                       device=device)
+    return (ly.time_major(x), ly.carry0(st, mixer), ly.consts(mixer), mix)
+
+
+@pytest.mark.parametrize("c,n", [(1, 57600), (512, 57600), (2, 140)])
+def test_k1_kernel_matches_plain(dev, c, n):
+    rng = np.random.default_rng(c * n)
+    u8 = torch.from_numpy(rng.integers(0, 256, size=(c, 2 * n),
+                                       dtype=np.uint8)).to(dev)
+    st = torch.tensor(rng.integers(-128, 128, size=(c, 2, 150)) / 128.0,
+                      dtype=torch.float32, device=dev)
+    h = torch.tensor(gfilt.lowpass_taps(151, MC.rf_fs, cfg.RF_FC_HZ),
+                     dtype=torch.float32, device=dev)
+    before = fir_frontend.fir_frontend_u8.launches
+    yk, sk = fir_frontend.fir_frontend_u8(u8, h, st, 10)
+    yp, sp = fir_frontend.fir_frontend_u8_plain(u8, h, st, 10)
+    torch.cuda.synchronize()
+    assert fir_frontend.fir_frontend_u8.launches == before + 1
+    _close(yk, yp, K1_ATOL)
+    assert torch.equal(sk, sp)
+
+
+@pytest.mark.parametrize("c", [1, 3, 512])
+def test_k2_kernel_matches_plain(dev, c):
+    xs, c0, consts, _ = _lanes_case(c, 1920, False, dev)
+    before = pll_cuda.pll_angles.launches
+    ak, ck = pll_cuda.pll_angles(xs, c0, consts)
+    ap, cp = pll_cuda.pll_angles_plain(xs, c0, consts)
+    assert pll_cuda.pll_angles.launches == before + 1
+    _close(ak, ap, PLL_ATOL)
+    _close(ck, cp, PLL_ATOL)
+
+
+@pytest.mark.parametrize("c", [1, 512])
+def test_k3_kernel_matches_plain(dev, c):
+    xs, c0, consts, mix = _lanes_case(c, 1920, True, dev)
+    before = pll_cuda.pll_mixer.launches
+    mk, ck = pll_cuda.pll_mixer(xs, mix, c0, consts)
+    mp, cp = pll_cuda.pll_mixer_plain(xs, mix, c0, consts)
+    assert pll_cuda.pll_mixer.launches == before + 1
+    _close(mk, mp, PLL_ATOL)
+    _close(ck, cp, PLL_ATOL)
+
+
+@pytest.mark.parametrize("c", [1, 512])
+def test_receiver_on_card_matches_cpu(dev, c):
+    """Two short blocks through the receiver on the card (kernels) and on
+    the CPU (plain versions); C = 512 takes K3, C = 1 takes K2."""
+    iq = synth.synthesize_fm(duration_s=0.02, mode=0, seed=3).iq_u8[:38_400]
+    iq = np.broadcast_to(iq, (c,) + iq.shape) if c > 1 else iq
+    gpu = prx.Receiver(0, True, True, batch_shape=(c,) if c > 1 else (),
+                       device=dev)
+    cpu = prx.Receiver(0, True, True, batch_shape=(c,) if c > 1 else ())
+    counts = (pll_cuda.pll_angles.launches, pll_cuda.pll_mixer.launches)
+    og = gpu.run(iq, block_size=19_200)
+    oc = cpu.run(iq, block_size=19_200)
+    used = (pll_cuda.pll_mixer.launches if c > 1
+            else pll_cuda.pll_angles.launches)
+    assert used == counts[1 if c > 1 else 0] + 2
+    _close(og.fm_demod, oc.fm_demod, 1e-5)
+    for f in ("left", "right", "rds_symbols"):
+        _close(getattr(og, f), getattr(oc, f), 5e-3)

@@ -1,0 +1,103 @@
+"""Guards of the PyTorch port's boundaries.
+
+* Importing ``sdr_tpu_torch`` and every submodule loads no ``jax``: the
+  machine with the GPU has none.  Checked in a fresh interpreter whose
+  import system refuses ``jax``, and by scanning the port's imports for
+  ``jax`` and for the ``sdr_tpu`` subpackages that import it.
+* A kernel wrapper handed a CUDA tensor launches its kernel or raises: no
+  kernel module catches an exception and falls back to the plain version.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "sdr_tpu_torch"
+FORBIDDEN = ("jax", "sdr_tpu.models", "sdr_tpu.ops", "sdr_tpu.parallel",
+             "sdr_tpu.checkpoint", "sdr_tpu.cli", "sdr_tpu.io",
+             "sdr_tpu.native")
+KERNEL_MODULES = ("ops/fir_frontend.py", "ops/pll_cuda.py",
+                  "kernels/build.py")
+
+
+def _port_modules() -> list[str]:
+    mods = []
+    for p in sorted(PORT.rglob("*.py")):
+        rel = p.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_import_loads_no_jax():
+    code = f"""
+import sys
+for name in [m for m in sys.modules if m == "jax" or m.startswith("jax.")]:
+    del sys.modules[name]
+
+class RefuseJax:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            raise ImportError("the PyTorch port must not import " + name)
+        return None
+
+sys.meta_path.insert(0, RefuseJax())
+import importlib
+for mod in {_port_modules()!r}:
+    importlib.import_module(mod)
+import sdr_tpu_torch
+assert not [m for m in sys.modules if m.startswith(("jax", "jaxlib"))]
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr[-3000:]
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
+    + ["chip_smoke.py", "tests/test_torch_cuda.py"])
+def test_no_forbidden_import(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+            if node.module == "sdr_tpu":
+                names += [f"sdr_tpu.{a.name}" for a in node.names]
+        else:
+            continue
+        for name in names:
+            assert not any(name == f or name.startswith(f + ".")
+                           for f in FORBIDDEN), f"{path}: imports {name}"
+
+
+@pytest.mark.parametrize("path", KERNEL_MODULES)
+def test_kernel_modules_do_not_fall_back(path):
+    """No try/except in a kernel module: a failed build or launch
+    propagates instead of silently running the plain version."""
+    tree = ast.parse((PORT / path).read_text())
+    handlers = [n.lineno for n in ast.walk(tree)
+                if isinstance(n, (ast.Try, ast.ExceptHandler))]
+    assert not handlers, f"{path}: exception handler at lines {handlers}"
+
+
+def test_kernel_modules_import_no_triton_or_nvcc_at_import():
+    """Importing a kernel module builds nothing: the build happens at the
+    first launch on a CUDA tensor."""
+    code = """
+import sys
+from sdr_tpu_torch.kernels import build
+from sdr_tpu_torch.ops import fir_frontend, pll_cuda
+assert build.load.cache_info().currsize == 0
+assert "triton" not in sys.modules
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr[-3000:]
