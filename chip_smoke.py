@@ -9,17 +9,25 @@ Phases, one line of output each (any failure raises and exits non-zero):
 
 1. card and build: requires CUDA, prints the card's name and power limit,
    and builds the CUDA kernels from ``sdr_tpu_torch/csrc`` with nvcc;
-2. kernels against their plain PyTorch versions at the main path's shapes:
+2. kernels against their plain PyTorch versions at the paths' shapes:
    K1 ``fir_frontend_u8`` (C=1, C=512, a short block, a 4-block chain),
    K2 ``pll_angles`` (C=1 x 2 arms, 3 chained blocks), K3 ``pll_mixer``
-   (C=512 x 2 arms);
-3. the main path: ``sdr_tpu_torch.receive`` on a synthesized 1 s mode-0
-   stereo+RDS capture (stereo separation and RDS info words checked
-   against what was transmitted), then a 512-channel ``Receiver`` for 4
-   blocks whose channel 0 must match a single-channel run; every kernel's
-   launch count in this phase must be above zero;
-4. timing with CUDA events: block time and IQ rate at C=1 and C=512, and
-   each kernel against its plain version.
+   (C=512 x 2 arms), K5 ``fir_decim_f32`` (the receiver's float front-end
+   at C=1 and C=512, the channelizer's FIR at C=2 and C=64 with D=4 and
+   D=8, a 3-block chain), K4 ``fir_decim_i8`` (C=1, C=512, a short
+   block);
+3. the paths, each with the launch counts set to 0 just before it and
+   read just after: (a) ``sdr_tpu_torch.receive`` on a synthesized 1 s
+   mode-0 stereo+RDS capture, then a 512-channel ``Receiver`` for 4 blocks
+   whose channel 0 must match a single-channel run (K1, K2, K3); (b) the
+   CLI, ``python -m sdr_tpu_torch.cli`` driven in process, with
+   ``--wideband`` on a synthesized 1 s 9.6 MS/s capture of two stations
+   (K5, K2); (c) the CLI on the single-station capture of (a) (K1, K2).
+   Stereo separation and RDS info words are checked against what each
+   station transmitted;
+4. timing with CUDA events: block time and IQ rate at C=1 and C=512, the
+   wideband block (channelizer + receiver) at C=2 and C=64, and each
+   kernel against its plain version.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 reports them, a JSON object with one entry per kernel, and
@@ -38,18 +46,21 @@ import numpy as np
 import torch
 
 import sdr_tpu_torch
-from sdr_tpu_torch import stimulus
+from sdr_tpu_torch import cli, stimulus
 from sdr_tpu_torch.kernels import build
 from sdr_tpu_torch.models import receiver as rx
-from sdr_tpu_torch.ops import fir_frontend, pll_cuda
+from sdr_tpu_torch.models.channelizer import Channelizer
+from sdr_tpu_torch.models.rds_groups import bits_to_int
+from sdr_tpu_torch.ops import fir_decim, fir_frontend, pll_cuda
 from sdr_tpu_torch.ops import pll as tpll
 from sdr_tpu import config as cfg
 from sdr_tpu.utils import synth
 
 ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "chip_smoke"     # captures and CLI outputs
 MODE = 0
 SEED = 20261016
-K1_ATOL = 1e-5    # fp32 FIR, two summation orders
+K1_ATOL = 1e-5    # fp32 FIR, two summation orders (also K4, K5)
 PLL_ATOL = 1e-4   # the JAX package's gate for its PLL kernel
 ROW0_ATOL = 1e-4  # channel 0 of C=512 (K3) against a C=1 run (K2)
 SEP_DB = 30.0
@@ -67,7 +78,17 @@ KERNELS = {
         route="cuda", source="sdr_tpu_torch/csrc/pll.cu",
         replaces="sdr_tpu/ops/pallas_pll.py:356",
         counter=pll_cuda.pll_mixer),
+    "fir_decim_i8": dict(
+        route="cuda", source="sdr_tpu_torch/csrc/fir_decim.cu",
+        replaces="sdr_tpu/ops/pallas_fir_mxu.py:132",
+        counter=fir_frontend.fir_frontend_u8_deinterleaved),
+    "fir_decim_f32": dict(
+        route="cuda", source="sdr_tpu_torch/csrc/fir_decim.cu",
+        replaces="sdr_tpu/ops/pallas_fir.py:173",
+        counter=fir_decim.fir_block_decim),
 }
+WIDE_FS = 9.6e6
+WIDE_OFFSETS = (-1.5e6, 2.0e6)
 
 
 def card() -> str:
@@ -217,7 +238,106 @@ def check_k3(rng) -> dict:
     return {"max_abs_err": worst, "case": (xs, ms, c0, consts)}
 
 
+def _f32_case(rng, shape) -> torch.Tensor:
+    return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device="cuda")
+
+
+def _k5_pair(x, h, st, d, name: str) -> float:
+    yk, sk = fir_decim.fir_block_decim(x, h, st, d)
+    yp, sp = fir_decim.fir_block_decim_plain(x, h, st, d)
+    torch.cuda.synchronize()
+    err = max_err(yk, yp)
+    if err > K1_ATOL or not torch.equal(sk, sp):
+        raise AssertionError(f"K5 {name}: max err {err:.3g} > {K1_ATOL} or "
+                             "state mismatch")
+    return err
+
+
+def check_k5(h_rf: torch.Tensor, rng) -> dict:
+    """K5 against its plain version: the receiver's float RF front-end (the
+    interleaved (C, 2N) block read as its (C, 2, N) view, element step 2)
+    and the channelizer's anti-alias FIR on its (C, 2, N_wide) stack, then a
+    3-block chain.  Outputs within K1_ATOL, states exactly equal."""
+    mc = cfg.get_mode_config(MODE)
+    n_block = mc.default_block_size(True) // 2          # 57,600 I/Q pairs
+    worst, cases = 0.0, {}
+    for c in (1, 512):
+        x = _f32_case(rng, (c, 2 * n_block)).reshape(c, n_block,
+                                                     2).movedim(-1, -2)
+        st = _f32_case(rng, (c, 2, h_rf.shape[0] - 1))
+        err = _k5_pair(x, h_rf, st, mc.rf_decim, f"front-end C={c}")
+        worst = max(worst, err)
+        cases[f"front-end C={c}"] = (x, h_rf, st, mc.rf_decim)
+    for d in (4, 8):
+        ch = Channelizer(WIDE_OFFSETS, d * mc.rf_fs, MODE, device="cuda")
+        for c in (2, 64):
+            x = _f32_case(rng, (c, 2, d * n_block))
+            st = _f32_case(rng, (c, 2, ch.coeffs.shape[0] - 1))
+            err = _k5_pair(x, ch.coeffs, st, d, f"channelizer C={c} D={d}")
+            worst = max(worst, err)
+            cases[f"channelizer C={c} D={d}"] = (x, ch.coeffs, st, d)
+    x, h, st, d = cases["channelizer C=2 D=4"]
+    sk = sp = st
+    for b in range(3):
+        blk = x[..., b * 4 * 5760:(b + 1) * 4 * 5760]
+        yk, sk = fir_decim.fir_block_decim(blk, h, sk, d)
+        yp, sp = fir_decim.fir_block_decim_plain(blk, h, sp, d)
+        err = max_err(yk, yp)
+        if err > K1_ATOL or not torch.equal(sk, sp):
+            raise AssertionError(f"K5 chain block {b}: max err {err:.3g} or "
+                                 "state mismatch")
+        worst = max(worst, err)
+    print(f"K5 fir_decim_f32 vs plain: front-end C=1, C=512 (step 2); "
+          f"channelizer C=2, C=64 x D=4, D=8; 3-block chain: max abs err "
+          f"{worst:.3g} (atol {K1_ATOL}), states equal")
+    return {"max_abs_err": worst, "cases": cases}
+
+
+def check_k4(h: torch.Tensor, rng) -> dict:
+    """K4 against K1's plain version: C=1, C=512 and a short block.  No
+    path runs K4, so these are its launches."""
+    mc = cfg.get_mode_config(MODE)
+    n_block = mc.default_block_size(True) // 2
+    k4 = fir_frontend.fir_frontend_u8_deinterleaved
+    k4.launches = 0
+    worst, cases = 0.0, {}
+    for name, c, n in (("C=1", 1, n_block), ("C=512", 512, n_block),
+                       ("short N=140", 2, 140)):
+        iq, st = _u8_case(rng, c, n, h.shape[0])
+        yk, sk = k4(iq, h, st, mc.rf_decim)
+        yp, sp = fir_frontend.fir_frontend_u8_plain(iq, h, st, mc.rf_decim)
+        torch.cuda.synchronize()
+        err = max_err(yk, yp)
+        if err > K1_ATOL or not torch.equal(sk, sp):
+            raise AssertionError(f"K4 {name}: max err {err:.3g} > {K1_ATOL} "
+                                 "or state mismatch")
+        worst = max(worst, err)
+        cases[name] = (iq, st)
+    launches = k4.launches
+    print(f"K4 fir_decim_i8 vs plain: C=1, C=512, short block: max abs err "
+          f"{worst:.3g} (atol {K1_ATOL}), states equal; {launches} launches")
+    return {"max_abs_err": worst, "cases": cases, "launches": launches}
+
+
 # --- phase 3 ----------------------------------------------------------------
+
+
+def _reset_counts() -> None:
+    for spec in KERNELS.values():
+        spec["counter"].launches = 0
+
+
+def _read_counts(path: str, need: tuple[str, ...]) -> dict:
+    """The launch counts of the path just driven; raises when a kernel of
+    that path (``need``) never ran."""
+    torch.cuda.synchronize()
+    launches = {name: spec["counter"].launches
+                for name, spec in KERNELS.items()}
+    if min(launches[name] for name in need) == 0:
+        raise AssertionError(f"{path}: a kernel of the path never ran: "
+                             f"{launches}")
+    return launches
 
 
 def _tone_power(x: np.ndarray, fs: float, f: float) -> float:
@@ -250,19 +370,14 @@ def phase_main_path(rng) -> dict:
     bs = mc.default_block_size(True)
     batch = _serving_batch(res.iq_u8, 512, 4 * bs, rng)
 
-    for spec in KERNELS.values():
-        spec["counter"].launches = 0
+    _reset_counts()
     out = sdr_tpu_torch.receive(res.iq_u8, mode=MODE, stereo=True, rds=True,
                                 device="cuda")
     r512 = rx.Receiver(MODE, stereo=True, with_rds=True, batch_shape=(512,),
                        device="cuda")
     outs512 = r512.run(batch)
-    torch.cuda.synchronize()
-    launches = {name: spec["counter"].launches
-                for name, spec in KERNELS.items()}
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the main path never ran: "
-                             f"{launches}")
+    launches = _read_counts("main path", ("fir_frontend_u8", "pll_angles",
+                                          "pll_mixer"))
 
     sep_l, sep_r = _separation_db(out.left, out.right, mc.audio_fs, 800.0,
                                   1500.0)
@@ -295,13 +410,119 @@ def phase_main_path(rng) -> dict:
         errs.append(e)
     print("main path: C=512 channel 0 vs C=1 per block max abs err "
           + ", ".join(f"{e:.3g}" for e in errs) + f" (atol {ROW0_ATOL})")
-    return {"launches": launches}
+    return {"launches": launches, "capture": res}
+
+
+def _read_wav(path: Path) -> tuple[np.ndarray, np.ndarray]:
+    """(left, right) of a 16-bit stereo wav written by the CLI."""
+    pcm = np.frombuffer(path.read_bytes()[44:], dtype=np.int16)
+    return pcm[0::2] / 16384.0, pcm[1::2] / 16384.0
+
+
+def _check_station(label: str, wav: Path, dec, sent_groups, tone_l: float,
+                   tone_r: float) -> str:
+    """Stereo separation at the station's own tones, and every info word
+    of every RDS group the CLI decoded was transmitted to this station."""
+    mc = cfg.get_mode_config(MODE)
+    left, right = _read_wav(wav)
+    sep_l, sep_r = _separation_db(left, right, mc.audio_fs, tone_l, tone_r)
+    if not (len(left) > 0.9 * mc.audio_fs and sep_l > SEP_DB
+            and sep_r > SEP_DB):
+        raise AssertionError(f"{label}: {len(left)} samples, separation L "
+                             f"{sep_l:.1f} dB, R {sep_r:.1f} dB (need > "
+                             f"{SEP_DB})")
+    sent = {tuple(w) for g in sent_groups for w in g}
+    words = [tuple(w) for g in dec.groups for w in g.words]
+    # the synthesized groups are random, each with its own block-A word
+    pis_sent = {bits_to_int(g[0]) for g in sent_groups}
+    st = dec.station_info()
+    if not words or not all(w in sent for w in words) \
+            or st.pi not in pis_sent:
+        raise AssertionError(f"{label}: {len(words)} RDS info words, "
+                             f"{sum(w in sent for w in words)} transmitted; "
+                             f"PI {st.pi} not among those sent")
+    return (f"{label}: separation L {sep_l:.1f} dB, R {sep_r:.1f} dB "
+            f"({tone_l:.0f}/{tone_r:.0f} Hz); RDS {dec.n_matches} frames, "
+            f"{len(dec.groups)} groups, all {len(words)} info words "
+            f"transmitted, PI={st.pi:04X}")
+
+
+def phase_cli(res) -> dict:
+    """The CLI in process: ``--wideband`` on a 1 s two-station capture,
+    then single-station on the capture of the main path.  Launch counts
+    are set to 0 before each and read after."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    wb = synth.synthesize_wideband(duration_s=1.0, fs_wide=WIDE_FS,
+                                   offsets_hz=list(WIDE_OFFSETS), mode=MODE,
+                                   seed=SEED + 2, with_rds=True)
+    raw = WORK / "wideband.raw"
+    wb.iq_u8.tofile(raw)
+    decs: list = []
+    _reset_counts()
+    rc = cli.main(["--device", "cuda", "--mode", str(MODE), "--stereo",
+                   "--rds", "--wideband", str(int(WIDE_FS)),
+                   "--offsets=" + ",".join(str(int(f)) for f in WIDE_OFFSETS),
+                   str(raw), "--wav", "-o", str(WORK / "station")],
+                  rds_decoders=decs)
+    wide = _read_counts("wideband CLI", ("fir_decim_f32", "pll_angles"))
+    if rc != 0 or len(decs) != len(WIDE_OFFSETS):
+        raise AssertionError(f"wideband CLI exited {rc} with {len(decs)} "
+                             "RDS decoders")
+    for k in range(len(WIDE_OFFSETS)):
+        # synth.synthesize_wideband's tones: 600 + 300k Hz left,
+        # 2300 - 400k Hz right
+        print("wideband CLI " + _check_station(
+            f"station {k} @ {WIDE_OFFSETS[k] / 1e6:+.1f} MHz",
+            WORK / f"station_{k}.wav", decs[k],
+            wb.stations[k].rds_info_bits, 600.0 + 300.0 * k,
+            2300.0 - 400.0 * k))
+    print(f"wideband CLI: launches {wide}")
+
+    raw = WORK / "single.raw"
+    res.iq_u8.tofile(raw)
+    decs = []
+    _reset_counts()
+    rc = cli.main(["--device", "cuda", "--mode", str(MODE), "--stereo",
+                   "--rds", str(raw), "--wav", "-o", str(WORK / "single.wav")],
+                  rds_decoders=decs)
+    single = _read_counts("single-station CLI", ("fir_frontend_u8",
+                                                 "pll_angles"))
+    if rc != 0 or len(decs) != 1:
+        raise AssertionError(f"single-station CLI exited {rc}")
+    print("single-station CLI " + _check_station(
+        "1 s capture", WORK / "single.wav", decs[0], res.rds_info_bits,
+        800.0, 1500.0) + f"; launches {single}")
+    return {"launches": wide}
 
 
 # --- phase 4 ----------------------------------------------------------------
 
 
-def phase_timing(smi: str, k1: dict, k2: dict, k3: dict) -> dict:
+def _time_wideband(smi: str, c: int, fs_wide: float, offsets, rng,
+                   reps: int) -> None:
+    """One wideband block of random u8 (one mode-0 RDS block after
+    decimation) through the channelizer and a C-station receiver."""
+    mc = cfg.get_mode_config(MODE)
+    ch = Channelizer(offsets, fs_wide, MODE, device="cuda")
+    r = rx.Receiver(MODE, stereo=True, with_rds=True, batch_shape=(c,),
+                    device="cuda")
+    n_bytes = mc.default_block_size(True) * ch.decim
+    blk = torch.from_numpy(rng.integers(0, 256, size=n_bytes,
+                                        dtype=np.uint8)).cuda()
+    base = ch.process(blk)
+    ms = cuda_ms(lambda: r.process(ch.process(blk)), reps, warmup=3)
+    ms_ch = cuda_ms(lambda: ch.process(blk), reps)
+    ms_rx = cuda_ms(lambda: r.process(base), reps)
+    block_ms = n_bytes / 2 / fs_wide * 1e3
+    print(f"timing [{smi}]: wideband block, C={c} stations at "
+          f"{fs_wide / 1e6:.1f} MS/s (D={ch.decim}): {ms:.3f} ms/block "
+          f"(channelizer {ms_ch:.3f}, receiver {ms_rx:.3f}), "
+          f"{n_bytes / 2 / ms / 1e3:.2f} wideband Msamples/s, "
+          f"{block_ms / ms:.1f}x real time")
+
+
+def phase_timing(smi: str, k1: dict, k2: dict, k3: dict, k4: dict,
+                 k5: dict) -> dict:
     mc = cfg.get_mode_config(MODE)
     bs = mc.default_block_size(True)
     n_iq = bs // 2
@@ -351,6 +572,26 @@ def phase_timing(smi: str, k1: dict, k2: dict, k3: dict) -> dict:
             kms = cuda_ms(lambda: pll_cuda.pll_angles(xs, c0, consts), 10)
         print(f"timing [{smi}]: {'K3 pll_mixer' if mixer else 'K2 pll_angles'}"
               f" C={c} x 2 arms x 5760: kernel {kms:.4f} ms")
+    for name in ("C=1", "C=512"):
+        iq, st = k4["cases"][name]
+        kms = cuda_ms(lambda: fir_frontend.fir_frontend_u8_deinterleaved(
+            iq, h, st, 10), 50)
+        pms = cuda_ms(lambda: fir_frontend.fir_frontend_u8_plain(iq, h, st,
+                                                                 10), 20)
+        print(f"timing [{smi}]: K4 fir_decim_i8 {name}: kernel {kms:.4f} ms, "
+              f"plain {pms:.4f} ms")
+        times["fir_decim_i8"] = (kms, pms)
+    # the JSON line keeps the last case: the channelizer at C=64, D=8
+    for name, (x, hk, st, d) in k5["cases"].items():
+        kms = cuda_ms(lambda: fir_decim.fir_block_decim(x, hk, st, d), 20)
+        pms = cuda_ms(lambda: fir_decim.fir_block_decim_plain(x, hk, st, d),
+                      10)
+        print(f"timing [{smi}]: K5 fir_decim_f32 {name}: kernel {kms:.4f} ms, "
+              f"plain {pms:.4f} ms")
+        times["fir_decim_f32"] = (kms, pms)
+    _time_wideband(smi, 2, WIDE_FS, WIDE_OFFSETS, rng, 10)
+    _time_wideband(smi, 64, 2 * WIDE_FS,
+                   [(k - 32) * 200e3 for k in range(64)], rng, 5)
     return times
 
 
@@ -361,13 +602,23 @@ def main() -> int:
     k1 = check_k1(h, rng)
     k2 = check_k2(rng)
     k3 = check_k3(rng)
+    k5 = check_k5(h, rng)
+    k4 = check_k4(h, rng)
     main_path = phase_main_path(rng)
-    times = phase_timing(smi, k1, k2, k3)
+    wideband = phase_cli(main_path["capture"])
+    times = phase_timing(smi, k1, k2, k3, k4, k5)
     errs = {"fir_frontend_u8": k1["max_abs_err"],
-            "pll_angles": k2["max_abs_err"], "pll_mixer": k3["max_abs_err"]}
+            "pll_angles": k2["max_abs_err"], "pll_mixer": k3["max_abs_err"],
+            "fir_decim_i8": k4["max_abs_err"],
+            "fir_decim_f32": k5["max_abs_err"]}
+    # each kernel's launches on its path: K1-K3 on the main path, K5 on the
+    # wideband CLI, K4 (on no path) in its phase-2 check
+    launches = dict(main_path["launches"],
+                    fir_decim_i8=k4["launches"],
+                    fir_decim_f32=wideband["launches"]["fir_decim_f32"])
     kernels = [{"name": name, "route": spec["route"],
                 "source": spec["source"], "replaces": spec["replaces"],
-                "launches": main_path["launches"][name],
+                "launches": launches[name],
                 "max_abs_err": errs[name], "ms": times[name][0],
                 "plain_ms": times[name][1]}
                for name, spec in KERNELS.items()]

@@ -4,17 +4,22 @@ kernels hand-written for Hopper (H100).
 Raw 8-bit interleaved I/Q in; mono, stereo L/R and RDS out.  The package
 mirrors ``sdr_tpu``'s layout and contracts, and the JAX package is the
 reference its tests hold it against.  It imports ``torch`` and never
-``jax``: of ``sdr_tpu`` it imports only the numpy modules ``config``,
-``golden`` and ``utils.synth``.
+``jax``: of ``sdr_tpu`` it imports only the modules that load no JAX,
+``config``, ``golden``, ``utils.synth``, ``io`` and ``native``.
 
-* ``sdr_tpu_torch.ops``     — FIRs, FM demod and PLL in plain PyTorch, and
-  the kernel wrappers (``fir_frontend``: K1; ``pll_cuda``: K2, K3)
-* ``sdr_tpu_torch.models``  — the per-block receiver DAG and the host RDS
-  decode
-* ``sdr_tpu_torch.csrc``    — the CUDA C++ kernel sources
-* ``sdr_tpu_torch.kernels`` — builds them with nvcc at first use
-* ``sdr_tpu_torch.convert`` — coefficients and state to and from the JAX
-  package
+* ``sdr_tpu_torch.ops``        — FIRs, FM demod and PLL in plain PyTorch,
+  and the kernel wrappers (``fir_frontend``: K1, K4; ``fir_decim``: K5;
+  ``pll_cuda``: K2, K3)
+* ``sdr_tpu_torch.models``     — the per-block receiver DAG, the wideband
+  channelizer, and the host RDS decode and group layer
+* ``sdr_tpu_torch.cli``        — the command-line receiver,
+  ``python -m sdr_tpu_torch.cli``
+* ``sdr_tpu_torch.checkpoint`` — the receiver state as ``.npz``, in the
+  JAX package's format
+* ``sdr_tpu_torch.csrc``       — the CUDA C++ kernel sources
+* ``sdr_tpu_torch.kernels``    — builds them with nvcc at first use
+* ``sdr_tpu_torch.convert``    — coefficients and state to and from the
+  JAX package
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels into one shared library and load it.
 
 The sources are ``sdr_tpu_torch/csrc/*.cu``.  They are compiled at first
-use by ``nvcc`` for Hopper (``sm_90a``) into one ``.so`` with a plain C
-interface, which is loaded with ``ctypes``: a build takes seconds, where an
-extension that includes PyTorch's headers takes minutes.  The library goes
-to ``build/sdr_tpu_torch/<hash>/`` at the repository root (listed in
+use by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all
+started together, and linked into one ``.so`` with a plain C interface,
+which is loaded with ``ctypes``: a build takes seconds, where an extension
+that includes PyTorch's headers takes minutes.  The library goes to
+``build/sdr_tpu_torch/<hash>/`` at the repository root (listed in
 ``.gitignore``), keyed by a hash of the sources and flags, so an unchanged
 checkout builds once and an edited source rebuilds.  ``nvcc``'s output,
 including ``ptxas``'s register and shared-memory report, is kept beside the
@@ -28,10 +29,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sdr_tpu_torch"
 LIB_NAME = "libsdr_tpu_torch.so"
 
 # --fmad=false keeps the PLL recurrence rounding op by op like the plain
-# PyTorch loop; the FIR kernel's multiply-adds are explicit fmaf.
+# PyTorch loop; the FIR kernels' multiply-adds are explicit fmaf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def _sources() -> list[Path]:
@@ -58,25 +58,38 @@ def library_path() -> Path:
 def build() -> tuple[Path, float]:
     """Compile the library unless it is already built for these sources.
 
-    Returns (path, seconds spent compiling; 0.0 when it was built before).
-    Raises RuntimeError with the compiler's output when nvcc fails."""
+    Returns (path, seconds spent compiling and linking; 0.0 when it was
+    built before).  Raises RuntimeError with the compiler's output when
+    nvcc fails."""
     out = library_path()
     if out.exists():
         return out, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    (out.parent / "build.log").write_text(log)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)        # atomic: a concurrent loader sees all or none
-    return out, seconds
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        results = [(cmd, p.communicate()[0], p.returncode)
+                   for cmd, p in zip(cmds, procs)]
+        lib_tmp = Path(tmp) / LIB_NAME
+        if all(rc == 0 for _, _, rc in results):
+            link = [nvcc, "-shared", "-o", str(lib_tmp), *map(str, objs)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, proc.stdout + proc.stderr,
+                            proc.returncode))
+        log = "".join(" ".join(cmd) + "\n" + text
+                      for cmd, text, _ in results)
+        (out.parent / "build.log").write_text(log)
+        failed = [rc for _, _, rc in results if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
+        os.replace(lib_tmp, out)    # atomic: a concurrent loader sees all
+    return out, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=1)
@@ -85,15 +98,19 @@ def load() -> ctypes.CDLL:
     Every function returns ``cudaGetLastError()`` after its launch."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # iq, state, h, y, batch, n, k, decim, stream
     lib.sdr_fir_frontend_u8.argtypes = [p, p, p, p, i, i, i, i, p]
+    # x, state, h, y, batch, arms, outer_stride, arm_stride, step, n, k,
+    # decim, stream
+    for fn in (lib.sdr_fir_decim_f32, lib.sdr_fir_decim_i8):
+        fn.argtypes = [p, p, p, p, i, i, q, q, q, i, i, i, p]
     # xs, carry0, consts, args, carry_out, n, lanes, stream
     lib.sdr_pll_angles.argtypes = [p, p, p, p, p, i, i, p]
     # xs, mix, carry0, consts, mixer, carry_out, n, lanes, stream
     lib.sdr_pll_mixer.argtypes = [p, p, p, p, p, p, i, i, p]
-    for fn in (lib.sdr_fir_frontend_u8, lib.sdr_pll_angles,
-               lib.sdr_pll_mixer):
+    for fn in (lib.sdr_fir_frontend_u8, lib.sdr_fir_decim_f32,
+               lib.sdr_fir_decim_i8, lib.sdr_pll_angles, lib.sdr_pll_mixer):
         fn.restype = ctypes.c_int
     return lib
 

@@ -1,5 +1,6 @@
-"""Receiver models of the PyTorch port: the per-block DAG and the host-side
-RDS decode."""
+"""Receiver models of the PyTorch port: the per-block DAG, the wideband
+channelizer (``models.channelizer``), and the host-side RDS decode and
+group layer (``models.rds_decode``, ``models.rds_groups``)."""
 
 from sdr_tpu_torch.models import rds_decode  # noqa: F401
 from sdr_tpu_torch.models.receiver import (  # noqa: F401

@@ -10,9 +10,10 @@ leading, the same ``NamedTuple`` fields in the same order.  Streaming over a
 recording is a Python loop over blocks (:class:`Receiver`).  The symbol-rate
 RDS decode runs on the host (``sdr_tpu_torch.models.rds_decode``).
 
-Kernels: on raw u8 input the RF front-end is kernel K1
-(``ops.fir_frontend``); the two carrier-recovery PLLs run on K2 or K3
-(``ops.pll_cuda``).  There is one path: each kernel wrapper launches its
+Kernels: the RF front-end is kernel K1 (``ops.fir_frontend``) on raw u8
+input and K5 (``ops.fir_decim``) on float input, as the channelizer feeds
+it; the two carrier-recovery PLLs run on K2 or K3 (``ops.pll_cuda``).
+There is one path: each kernel wrapper launches its
 kernel on a CUDA tensor and runs its plain version on a CPU tensor, which
 is the JAX package's ``auto_kernel_selectors`` decision made by device.
 Everything else is plain PyTorch, as it was XLA in the JAX package.
@@ -30,7 +31,7 @@ from sdr_tpu import config as cfg
 from sdr_tpu.golden import filters as gfilt
 from sdr_tpu_torch.ops import demod as tdemod
 from sdr_tpu_torch.ops import fir as tfir
-from sdr_tpu_torch.ops import fir_frontend
+from sdr_tpu_torch.ops import fir_decim, fir_frontend
 from sdr_tpu_torch.ops import pll as tpll
 from sdr_tpu_torch.ops import pll_cuda
 
@@ -228,7 +229,8 @@ def process_block(iq: torch.Tensor, coeffs: ReceiverCoeffs,
 
     ``iq`` is interleaved I,Q,... of shape (..., 2*N_rf): raw uint8 straight
     off the SDR, or normalized float32.  Leading dims are an
-    independent-channel batch.  Raw u8 input goes through K1; the PLLs run
+    independent-channel batch.  Raw u8 input goes through K1 and float
+    input through K5; the PLLs run
     on K3 when ``fused_mixer`` (default: :func:`fused_mixer_policy`) says so
     and on K2 otherwise.  On CPU tensors the wrappers run the kernels'
     plain versions.
@@ -243,12 +245,12 @@ def process_block(iq: torch.Tensor, coeffs: ReceiverCoeffs,
         ds2, nst2 = fir_frontend.fir_frontend_u8(iq, coeffs.rf, st2,
                                                  mc.rf_decim)
     else:
-        # Float input takes the plain fp32 decimating FIR on every device:
-        # the JAX package likewise sends only raw u8 through its fused
-        # front-end kernel.  It is that dispatch, not a fallback.
+        # K5 reads I and Q straight from the interleaved block through this
+        # (..., 2, N) view (element step 2): no deinterleaved copy
         iq2 = iq.reshape(iq.shape[:-1] + (iq.shape[-1] // 2, 2)).movedim(-1,
                                                                         -2)
-        ds2, nst2 = tfir.fir_block_decim_mm(iq2, coeffs.rf, st2, mc.rf_decim)
+        ds2, nst2 = fir_decim.fir_block_decim(iq2, coeffs.rf, st2,
+                                              mc.rf_decim)
     i_ds, q_ds = ds2[..., 0, :], ds2[..., 1, :]
     upd["rf_i"], upd["rf_q"] = nst2[..., 0, :], nst2[..., 1, :]
     fm, upd["demod_iq"] = tdemod.fm_demod_quad(i_ds, q_ds, s.demod_iq)

@@ -1,7 +1,13 @@
-"""RF front-end on raw u8 I/Q: kernel K1 and its plain version.
+"""RF front-end on raw u8 I/Q: kernels K1 and K4 and their plain version.
 
-Port of ``sdr_tpu/ops/pallas_fir_mxu.py::fir_frontend_u8_pallas_int``.
-Contract: interleaved uint8 ``(..., 2N)`` in, taps ``h`` (K,) and the
+K1 is the port of ``sdr_tpu/ops/pallas_fir_mxu.py::
+fir_frontend_u8_pallas_int``, the receiver's u8 front-end.  K4
+(:func:`fir_frontend_u8_deinterleaved`, the port of
+``fir_frontend_u8_pallas``) computes the same function in the JAX
+package's deinterleaved int8 form; no path of either package runs it by
+default, and it shares the kernel ``csrc/fir_decim.cu`` with K5.
+
+Contract (both): interleaved uint8 ``(..., 2N)`` in, taps ``h`` (K,) and the
 stacked I/Q overlap-save state ``(..., 2, K-1)`` (f32, u8-normalized), out
 ``((..., 2, N/D) f32, (..., 2, K-1) f32 new state)``.
 
@@ -20,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from sdr_tpu_torch.kernels import build
-from sdr_tpu_torch.ops import fir
+from sdr_tpu_torch.ops import fir, fir_decim
 
 
 def normalize_u8(x: torch.Tensor) -> torch.Tensor:
@@ -104,3 +110,31 @@ def fir_frontend_u8(iq_u8: torch.Tensor, h: torch.Tensor, st2: torch.Tensor,
 
 
 fir_frontend_u8.launches = 0
+
+
+def fir_frontend_u8_deinterleaved(iq_u8: torch.Tensor, h: torch.Tensor,
+                                  st2: torch.Tensor, decim: int
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4: the same function as K1 in the JAX package's deinterleaved form.
+
+    Port of ``sdr_tpu/ops/pallas_fir_mxu.py::fir_frontend_u8_pallas``.  As
+    there, the bias flip ``u8 ^ 0x80`` (two's complement u8 - 128), the
+    deinterleave and ``round(st2 * 128)`` of the state (exact for a
+    u8-normalized state) run outside the kernel, here in PyTorch; then the
+    int8 instance of ``csrc/fir_decim.cu`` runs the FIR with the 2^-7
+    scale, and the new state is the int8 tail over 128.  A CPU tensor takes
+    :func:`fir_frontend_u8_plain`, K1's plain version; any other device
+    than CUDA raises."""
+    if iq_u8.device.type == "cpu":
+        return fir_frontend_u8_plain(iq_u8, h, st2, decim)
+    if iq_u8.device.type != "cuda":
+        raise RuntimeError(f"no K4 kernel for device {iq_u8.device}")
+    _check(iq_u8, h, st2, decim)
+    x2 = _deinterleave((iq_u8 ^ 0x80).view(torch.int8)).contiguous()
+    st_i8 = torch.round(st2 * 128.0).to(torch.int8)
+    y = fir_decim.launch(x2, h, st_i8, decim)
+    fir_frontend_u8_deinterleaved.launches += 1
+    return y, fir_decim.tail(x2, st_i8).to(torch.float32) * (1.0 / 128.0)
+
+
+fir_frontend_u8_deinterleaved.launches = 0

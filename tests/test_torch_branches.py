@@ -45,8 +45,8 @@ def test_single_pll_unfused(capture):
 
 
 def test_float_input_matches_u8(capture):
-    """Normalized float input takes the plain fp32 FIR; the u8 front-end
-    computes the same filter of the same exact values."""
+    """Normalized float input takes K5 (its plain fp32 FIR on the CPU);
+    the u8 front-end computes the same filter of the same exact values."""
     iq = capture[:SHORT]
     fl = (iq.astype(np.float32) - 128.0) / 128.0
     pc = prx.design_coeffs(MC)

@@ -8,12 +8,13 @@ machine, from the repository root:
 
 (``--noconftest``: tests/conftest.py configures JAX.)
 
-Tolerances: K1 at 1e-5 (two fp32 summation orders; the carried tails are
-exact and must be equal); K2/K3 at the JAX package's PLL gate of 1e-4,
-though with every rounding explicit they are expected bit-equal; the
-receiver on the card against the receiver on the CPU at 1e-5 on fm_demod
-and 5e-3 on the PLL-driven arms (the FIR products sum in other orders on
-the two devices, and the PLL lock transient amplifies ulps).
+Tolerances: K1, K4 and K5 at 1e-5 (two fp32 summation orders; the
+carried tails are exact and must be equal); K2/K3 at the JAX package's
+PLL gate of 1e-4, though with every rounding explicit they are expected
+bit-equal; the receiver on the card (u8 input: K1; float input: K5)
+against the receiver on the CPU at 1e-5 on fm_demod and 5e-3 on the
+PLL-driven arms (the FIR products sum in other orders on the two devices,
+and the PLL lock transient amplifies ulps).
 """
 
 import numpy as np
@@ -25,7 +26,7 @@ from sdr_tpu.golden import filters as gfilt
 from sdr_tpu.utils import synth
 from sdr_tpu_torch import stimulus
 from sdr_tpu_torch.models import receiver as prx
-from sdr_tpu_torch.ops import fir_frontend, pll_cuda
+from sdr_tpu_torch.ops import fir_decim, fir_frontend, pll_cuda
 from sdr_tpu_torch.ops import pll as tpll
 
 pytestmark = pytest.mark.cuda
@@ -78,6 +79,68 @@ def test_k1_kernel_matches_plain(dev, c, n):
     assert fir_frontend.fir_frontend_u8.launches == before + 1
     _close(yk, yp, K1_ATOL)
     assert torch.equal(sk, sp)
+
+
+@pytest.mark.parametrize("decim", [3, 4, 8, 10])
+@pytest.mark.parametrize("layout", ["interleaved", "stacked"])
+def test_k5_kernel_matches_plain(dev, decim, layout):
+    """K5 on the receiver's interleaved I/Q view (element step 2) and on
+    the channelizer's contiguous (C, 2, N) stack (step 1), over 3 chained
+    blocks; the first block is shorter than K-1 per output phase."""
+    rng = np.random.default_rng(decim)
+    c, k = 3, 151
+    h = torch.tensor(gfilt.lowpass_taps(k, 9.6e6, 1.08e6),
+                     dtype=torch.float32, device=dev)
+    sk = sp = torch.tensor(rng.standard_normal((c, 2, k - 1)),
+                           dtype=torch.float32, device=dev)
+    before = fir_decim.fir_block_decim.launches
+    for n in (decim * 14, decim * 960, decim * 1000):
+        x = torch.tensor(rng.standard_normal((c, 2 * n)), dtype=torch.float32,
+                         device=dev)
+        if layout == "interleaved":
+            x = x.reshape(c, n, 2).movedim(-1, -2)
+        else:
+            x = x.reshape(c, 2, n)
+        yk, sk = fir_decim.fir_block_decim(x, h, sk, decim)
+        yp, sp = fir_decim.fir_block_decim_plain(x, h, sp, decim)
+        torch.cuda.synchronize()
+        _close(yk, yp, K1_ATOL)
+        assert torch.equal(sk, sp)
+    assert fir_decim.fir_block_decim.launches == before + 3
+
+
+@pytest.mark.parametrize("c,n", [(1, 57600), (512, 57600), (2, 140)])
+def test_k4_kernel_matches_plain(dev, c, n):
+    rng = np.random.default_rng(c + n)
+    u8 = torch.from_numpy(rng.integers(0, 256, size=(c, 2 * n),
+                                       dtype=np.uint8)).to(dev)
+    st = torch.tensor(rng.integers(-128, 128, size=(c, 2, 150)) / 128.0,
+                      dtype=torch.float32, device=dev)
+    h = torch.tensor(gfilt.lowpass_taps(151, MC.rf_fs, cfg.RF_FC_HZ),
+                     dtype=torch.float32, device=dev)
+    before = fir_frontend.fir_frontend_u8_deinterleaved.launches
+    yk, sk = fir_frontend.fir_frontend_u8_deinterleaved(u8, h, st, 10)
+    yp, sp = fir_frontend.fir_frontend_u8_plain(u8, h, st, 10)
+    torch.cuda.synchronize()
+    assert fir_frontend.fir_frontend_u8_deinterleaved.launches == before + 1
+    _close(yk, yp, K1_ATOL)
+    assert torch.equal(sk, sp)
+
+
+def test_float_receiver_on_card_matches_cpu(dev):
+    """Float input (the channelizer's output form) through the receiver on
+    the card (K5 front-end) and on the CPU, 2 stations x 2 blocks."""
+    iq = synth.synthesize_fm(duration_s=0.02, mode=0, seed=4).iq_u8[:38_400]
+    x = np.stack([iq, iq[::-1]]).astype(np.float32) / 128.0 - 1.0
+    gpu = prx.Receiver(0, True, True, batch_shape=(2,), device=dev)
+    cpu = prx.Receiver(0, True, True, batch_shape=(2,))
+    before = fir_decim.fir_block_decim.launches
+    og = gpu.run(x, block_size=19_200)
+    oc = cpu.run(x, block_size=19_200)
+    assert fir_decim.fir_block_decim.launches == before + 2
+    _close(og.fm_demod, oc.fm_demod, 1e-5)
+    for f in ("left", "right", "rds_symbols"):
+        _close(getattr(og, f), getattr(oc, f), 5e-3)
 
 
 @pytest.mark.parametrize("c", [1, 3, 512])

@@ -18,10 +18,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "sdr_tpu_torch"
 FORBIDDEN = ("jax", "sdr_tpu.models", "sdr_tpu.ops", "sdr_tpu.parallel",
-             "sdr_tpu.checkpoint", "sdr_tpu.cli", "sdr_tpu.io",
-             "sdr_tpu.native")
-KERNEL_MODULES = ("ops/fir_frontend.py", "ops/pll_cuda.py",
-                  "kernels/build.py")
+             "sdr_tpu.checkpoint", "sdr_tpu.cli")
+KERNEL_MODULES = ("ops/fir_frontend.py", "ops/fir_decim.py",
+                  "ops/pll_cuda.py", "kernels/build.py")
 
 
 def _port_modules() -> list[str]:
@@ -93,7 +92,7 @@ def test_kernel_modules_import_no_triton_or_nvcc_at_import():
     code = """
 import sys
 from sdr_tpu_torch.kernels import build
-from sdr_tpu_torch.ops import fir_frontend, pll_cuda
+from sdr_tpu_torch.ops import fir_decim, fir_frontend, pll_cuda
 assert build.load.cache_info().currsize == 0
 assert "triton" not in sys.modules
 print("ok")

@@ -91,18 +91,33 @@ def compare_block(po, jo, ps, js):
     np.testing.assert_array_equal(np_of(ps.rf_q), np_of(js.rf_q))
 
 
-def run_both(iq, n_blocks, block, stereo, with_rds, jsel, psel,
-             batch=()):
-    """Chain ``n_blocks`` blocks of ``iq`` through both packages' mode-0
-    ``process_block`` and compare every block.  ``jsel`` are the JAX
-    package's keyword arguments (its kernel selectors among them); the port
-    has one path, so ``psel`` holds only ``rds_debug_q``/``fused_mixer``."""
-    pc, jc = prx.design_coeffs(MC), jrx.design_coeffs(MC)
-    ps, js = prx.init_state(MC, batch), jrx.init_state(MC, batch)
+def run_port(iq, n_blocks, block, stereo, with_rds, psel=None, batch=(),
+             mc=MC) -> list:
+    """Chain ``n_blocks`` blocks of ``iq`` through the port's
+    ``process_block``; returns [(outputs, state)] per block."""
+    pc, ps = prx.design_coeffs(mc), prx.init_state(mc, batch)
+    res = []
     for b in range(n_blocks):
+        blk = np.ascontiguousarray(iq[..., b * block:(b + 1) * block])
+        po, ps = prx.process_block(torch.from_numpy(blk), pc, ps, mc, stereo,
+                                   with_rds, **(psel or {}))
+        res.append((po, ps))
+    return res
+
+
+def run_both(iq, n_blocks, block, stereo, with_rds, jsel, psel,
+             batch=(), mc=MC, port=None):
+    """Chain ``n_blocks`` blocks of ``iq`` through both packages'
+    ``process_block`` (mode 0 unless ``mc`` says otherwise) and compare
+    every block.  ``jsel`` are the JAX package's keyword arguments (its
+    kernel selectors among them); the port has one path, so ``psel`` holds
+    only ``rds_debug_q``/``fused_mixer``.  ``port`` reuses a
+    :func:`run_port` result of the same blocks."""
+    port = port or run_port(iq, n_blocks, block, stereo, with_rds, psel,
+                            batch, mc)
+    jc, js = jrx.design_coeffs(mc), jrx.init_state(mc, batch)
+    for b, (po, ps) in enumerate(port):
         blk = iq[..., b * block:(b + 1) * block]
-        po, ps = prx.process_block(torch.from_numpy(
-            np.ascontiguousarray(blk)), pc, ps, MC, stereo, with_rds, **psel)
-        jo, js = jrx.process_block(jnp.asarray(blk), jc, js, MC, stereo,
+        jo, js = jrx.process_block(jnp.asarray(blk), jc, js, mc, stereo,
                                    with_rds, **jsel)
         compare_block(po, jo, ps, js)
