@@ -15,19 +15,27 @@ Phases, one line of output each (any failure raises and exits non-zero):
    (C=512 x 2 arms), K5 ``fir_decim_f32`` (the receiver's float front-end
    at C=1 and C=512, the channelizer's FIR at C=2 and C=64 with D=4 and
    D=8, a 3-block chain), K4 ``fir_decim_i8`` (C=1, C=512, a short
-   block);
+   block), K6 ``halo_shift_right`` (S=8 shards on one card with C=1 and
+   C=4 rows at mode 0's RDS halo, an odd halo, a 2 x 4 channel x time
+   grid; bit-equal);
 3. the paths, each with the launch counts set to 0 just before it and
    read just after: (a) ``sdr_tpu_torch.receive`` on a synthesized 1 s
    mode-0 stereo+RDS capture, then a 512-channel ``Receiver`` for 4 blocks
    whose channel 0 must match a single-channel run (K1, K2, K3); (b) the
    CLI, ``python -m sdr_tpu_torch.cli`` driven in process, with
    ``--wideband`` on a synthesized 1 s 9.6 MS/s capture of two stations
-   (K5, K2); (c) the CLI on the single-station capture of (a) (K1, K2).
-   Stereo separation and RDS info words are checked against what each
-   station transmitted;
+   (K5, K2); (c) the CLI on the single-station capture of (a) (K1, K2);
+   (d) ``time_sharded_receive`` of a synthesized 4 s capture over 8 time
+   shards on one card (K6, K5, K2), held to the JAX package's gates
+   against a contiguous ``Receiver.run`` on the card, then its chunked
+   variant (bit-equal), a ``channel_sharded_run`` of 8 channels over two
+   shards of the card, and, with two or more cards, the same time-sharded
+   run across two cards.  Stereo separation and RDS info words are
+   checked against what each station transmitted;
 4. timing with CUDA events: block time and IQ rate at C=1 and C=512, the
-   wideband block (channelizer + receiver) at C=2 and C=64, and each
-   kernel against its plain version.
+   wideband block (channelizer + receiver) at C=2 and C=64, each kernel
+   against its plain version, and a 60 s capture time-sharded at S = 1,
+   2, 4, 8 on the card against its contiguous run (host clock).
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 reports them, a JSON object with one entry per kernel, and
@@ -40,6 +48,7 @@ import json
 import math
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -48,11 +57,17 @@ import torch
 import sdr_tpu_torch
 from sdr_tpu_torch import cli, stimulus
 from sdr_tpu_torch.kernels import build
+from sdr_tpu_torch.models import rds_decode
 from sdr_tpu_torch.models import receiver as rx
 from sdr_tpu_torch.models.channelizer import Channelizer
 from sdr_tpu_torch.models.rds_groups import bits_to_int
 from sdr_tpu_torch.ops import fir_decim, fir_frontend, pll_cuda
 from sdr_tpu_torch.ops import pll as tpll
+from sdr_tpu_torch.parallel import (Mesh, assemble_time_chunks,
+                                    channel_sharded_run, default_block_if,
+                                    gather_channels, time_sharded_receive,
+                                    time_sharded_receive_chunked)
+from sdr_tpu_torch.parallel import halo as khalo
 from sdr_tpu import config as cfg
 from sdr_tpu.utils import synth
 
@@ -64,6 +79,12 @@ K1_ATOL = 1e-5    # fp32 FIR, two summation orders (also K4, K5)
 PLL_ATOL = 1e-4   # the JAX package's gate for its PLL kernel
 ROW0_ATOL = 1e-4  # channel 0 of C=512 (K3) against a C=1 run (K2)
 SEP_DB = 30.0
+LINEAR_ATOL = 1e-5   # time-sharded fm_demod/mono against contiguous
+SHARD0_ATOL = 1e-2   # shard 0's left channel against contiguous
+RELOCK_RMS = 1e-4    # left after RELOCK_SKIP: RMS error / reference RMS
+RELOCK_SKIP = 8000   # audio samples (tests/test_parallel.py)
+CHANNEL_ATOL = 1e-4  # channel-sharded against per-channel runs
+SHARDS = 8
 
 KERNELS = {
     "fir_frontend_u8": dict(
@@ -86,6 +107,10 @@ KERNELS = {
         route="cuda", source="sdr_tpu_torch/csrc/fir_decim.cu",
         replaces="sdr_tpu/ops/pallas_fir.py:173",
         counter=fir_decim.fir_block_decim),
+    "halo_shift_right": dict(
+        route="cuda", source="sdr_tpu_torch/csrc/halo.cu",
+        replaces="sdr_tpu/parallel/pallas_halo.py:77",
+        counter=khalo.halo_shift_right),
 }
 WIDE_FS = 9.6e6
 WIDE_OFFSETS = (-1.5e6, 2.0e6)
@@ -320,6 +345,45 @@ def check_k4(h: torch.Tensor, rng) -> dict:
     return {"max_abs_err": worst, "cases": cases, "launches": launches}
 
 
+def _halo_rows(rng, grid: tuple[int, int], c: int, halo: int):
+    """Shard buffers [halo | segment] on cuda:0 as ``grid`` (time rows x
+    shards) of (c, 2*halo): random segments, NaN halo slots."""
+    rows = []
+    for _ in range(grid[0]):
+        row = []
+        for _ in range(grid[1]):
+            buf = torch.full((c, 2 * halo), float("nan"), device="cuda")
+            buf[:, halo:] = _f32_case(rng, (c, halo))
+            row.append(buf)
+        rows.append(row)
+    return rows
+
+
+def check_k6(rng) -> dict:
+    """K6 against its plain version, bit for bit: S=8 shards on one card
+    with C=1 and C=4 rows at mode 0's RDS halo, an odd halo (the scalar
+    path), a 2 x 4 channel x time grid."""
+    mc = cfg.get_mode_config(MODE)
+    halo = 2 * default_block_if(mc, True) * 2 * mc.rf_decim    # 230,400
+    cases = {}
+    for name, grid, c, n in (("S=8 C=1", (1, SHARDS), 1, halo),
+                             ("S=8 C=4", (1, SHARDS), 4, halo),
+                             ("S=8 odd", (1, SHARDS), 2, 1_001),
+                             ("2x4 grid", (2, 4), 2, halo)):
+        rows = _halo_rows(rng, grid, c, n)
+        want = [[b.clone() for b in row] for row in rows]
+        khalo.halo_fill_plain(want, n)
+        khalo.halo_shift_right(rows, n)
+        torch.cuda.synchronize()
+        if not all(torch.equal(b, w) for row, ref in zip(rows, want)
+                   for b, w in zip(row, ref)):
+            raise AssertionError(f"K6 {name}: differs from its plain version")
+        cases[name] = (rows, want, n)
+    print(f"K6 halo_shift_right vs plain: {', '.join(cases)} (halo {halo}; "
+          "odd 1001): bit-equal")
+    return {"max_abs_err": 0.0, "cases": cases}
+
+
 # --- phase 3 ----------------------------------------------------------------
 
 
@@ -495,6 +559,116 @@ def phase_cli(res) -> dict:
     return {"launches": wide}
 
 
+def _sharded_gates(label: str, out, ref) -> str:
+    """The JAX package's gates for a time-sharded run against a contiguous
+    one: linear arms within LINEAR_ATOL, shard 0's left within SHARD0_ATOL,
+    the left channel's RMS error after RELOCK_SKIP samples below RELOCK_RMS
+    of the reference RMS."""
+    errs = {a: max_err(getattr(out, a), getattr(ref, a).reshape(-1))
+            for a in ("fm_demod", "mono")}
+    left, ref_left = out.left.cpu().numpy(), ref.left.reshape(-1).cpu().numpy()
+    first = len(ref_left) // SHARDS
+    err0 = float(np.abs(left[:first] - ref_left[:first]).max())
+    d = left[RELOCK_SKIP:] - ref_left[RELOCK_SKIP:]
+    rel = float(np.sqrt(np.mean(d ** 2))
+                / np.sqrt(np.mean(ref_left[RELOCK_SKIP:] ** 2)))
+    if not (max(errs.values()) <= LINEAR_ATOL and err0 <= SHARD0_ATOL
+            and rel < RELOCK_RMS):
+        raise AssertionError(f"{label}: fm/mono err {errs} (atol "
+                             f"{LINEAR_ATOL}), shard 0 left {err0:.3g} (atol "
+                             f"{SHARD0_ATOL}), relock RMS {rel:.3g} (< "
+                             f"{RELOCK_RMS})")
+    return (f"fm_demod {errs['fm_demod']:.3g}, mono {errs['mono']:.3g} "
+            f"(atol {LINEAR_ATOL}); shard 0 left {err0:.3g} (atol "
+            f"{SHARD0_ATOL}); relock RMS {rel:.3g} of the reference "
+            f"(< {RELOCK_RMS})")
+
+
+def phase_time_sharded(rng) -> dict:
+    """Path (d): a 4 s mode-0 stereo+RDS capture, normalized and trimmed to
+    8 segments of 20 blocks, time-sharded over 8 shards on cuda:0."""
+    mc = cfg.get_mode_config(MODE)
+    res = synth.synthesize_fm(duration_s=4.0, mode=MODE, seed=SEED + 3,
+                              with_rds=True)
+    block_raw = default_block_if(mc, True) * 2 * mc.rf_decim
+    iq = synth.u8_to_float(res.iq_u8)[: SHARDS * 20 * block_raw]
+    mesh = Mesh(["cuda:0"] * SHARDS, ("time",))
+
+    _reset_counts()
+    out = time_sharded_receive(iq, mesh, MODE, stereo=True, with_rds=True)
+    launches = _read_counts("time-sharded path", ("halo_shift_right",
+                                                  "fir_decim_f32",
+                                                  "pll_angles"))
+    ref = rx.Receiver(MODE, stereo=True, with_rds=True,
+                      device="cuda").run(iq, block_size=block_raw)
+    gates = _sharded_gates("time-sharded", out, ref)
+    sep_l, sep_r = _separation_db(out.left.cpu().numpy(),
+                                  out.right.cpu().numpy(), mc.audio_fs,
+                                  800.0, 1500.0)
+    if not sep_l > SEP_DB or not sep_r > SEP_DB:
+        raise AssertionError(f"time-sharded separation L {sep_l:.1f} dB, R "
+                             f"{sep_r:.1f} dB (need > {SEP_DB})")
+    dec = rds_decode.decode_robust(out.rds_symbols.cpu().numpy(),
+                                   mc.rds.sps)
+    sent = {tuple(w) for g in res.rds_info_bits for w in g}
+    words = [tuple(w) for w in dec.info_words]
+    n_groups = len(res.rds_info_bits)
+    hits = sum(w in sent for w in words)
+    if hits != len(words) or len(words) < n_groups:
+        raise AssertionError(f"time-sharded RDS: {hits} of {len(words)} info "
+                             f"words were transmitted; need all, and >= "
+                             f"{n_groups}")
+    print(f"time-sharded path: 4 s capture, {SHARDS} shards x 20 blocks on "
+          f"cuda:0 vs contiguous on the card: {gates}; separation L "
+          f"{sep_l:.1f} dB, R {sep_r:.1f} dB; RDS {len(words)} frames, all "
+          f"info words transmitted ({n_groups} groups sent); launches "
+          f"{launches}")
+
+    chunks = list(time_sharded_receive_chunked(iq, mesh, MODE, stereo=True,
+                                               with_rds=True, chunk_blocks=7))
+    got = assemble_time_chunks(chunks)
+    for arm in ("fm_demod", "mono", "left", "right", "rds_symbols"):
+        if not np.array_equal(got[arm], getattr(out, arm).cpu().numpy()):
+            raise AssertionError(f"time-sharded chunked {arm} differs from "
+                                 "the single-shot run")
+    print(f"time-sharded chunked (7-block chunks, halos sliced on the host): "
+          f"{len(chunks)} chunks, bit-equal to the single-shot run")
+
+    # 8 channels: the capture from 8 whole-I/Q-pair offsets, 4 blocks each
+    offs = 2 * rng.integers(0, (len(iq) - 4 * block_raw) // 2, size=8)
+    chans = np.stack([iq[o:o + 4 * block_raw] for o in offs])
+    outs, _ = gather_channels(channel_sharded_run(
+        chans, Mesh(["cuda:0"] * 2, ("ch",)), MODE, stereo=True,
+        with_rds=True))
+    worst = 0.0
+    for c in range(8):
+        one = rx.Receiver(MODE, stereo=True, with_rds=True,
+                          device="cuda").run(chans[c])
+        worst = max(worst, *(max_err(getattr(outs, a)[:, c], getattr(one, a))
+                             for a in ("fm_demod", "mono", "left", "right",
+                                       "rds_symbols")))
+    if not worst <= CHANNEL_ATOL:
+        raise AssertionError(f"channel-sharded: max err {worst:.3g} > "
+                             f"{CHANNEL_ATOL}")
+    print(f"channel-sharded: 8 channels x 4 blocks over 2 shards of cuda:0 "
+          f"vs per-channel runs: max abs err {worst:.3g} (atol "
+          f"{CHANNEL_ATOL})")
+
+    if torch.cuda.device_count() >= 2:
+        two = Mesh(["cuda:0"] * (SHARDS // 2) + ["cuda:1"] * (SHARDS // 2),
+                   ("time",))
+        before = khalo.halo_shift_right.launches
+        out2 = time_sharded_receive(iq, two, MODE, stereo=True,
+                                    with_rds=True)
+        n = khalo.halo_shift_right.launches - before
+        print(f"time-sharded across two cards (4 shards each, K6 reading "
+              f"over peer access): ran, {n} K6 launches; "
+              + _sharded_gates("two cards", out2, ref))
+    else:
+        print("time-sharded across two cards: not run (1 CUDA device)")
+    return {"launches": launches}
+
+
 # --- phase 4 ----------------------------------------------------------------
 
 
@@ -521,8 +695,41 @@ def _time_wideband(smi: str, c: int, fs_wide: float, offsets, rng,
           f"{block_ms / ms:.1f}x real time")
 
 
+def _time_sharding(smi: str, rng) -> None:
+    """A 60 s mode-0 stereo+RDS capture (random u8, normalized, trimmed to
+    whole blocks in 8 segments) through ``time_sharded_receive_chunked``
+    at S = 1, 2, 4, 8 on cuda:0 and through a contiguous
+    ``Receiver.run`` of the same capture; host clock, each run ending in
+    host numpy or a synchronize."""
+    mc = cfg.get_mode_config(MODE)
+    block_raw = default_block_if(mc, True) * 2 * mc.rf_decim
+    n = int(60 * mc.rf_fs * 2) // (SHARDS * block_raw) * SHARDS * block_raw
+    iq = rng.integers(0, 256, size=n, dtype=np.uint8).astype(np.float32)
+    iq /= 128.0
+    iq -= 1.0                           # exact: (u8 - 128) / 128
+    secs = n / 2 / mc.rf_fs
+    t0 = time.perf_counter()
+    rx.Receiver(MODE, stereo=True, with_rds=True, device="cuda").run(
+        iq, block_size=block_raw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"timing [{smi}]: {secs:.2f} s capture contiguous Receiver.run: "
+          f"{wall:.3f} s, {wall / secs * 1e3:.2f} ms per second of signal, "
+          f"{secs / wall:.1f}x real time")
+    for s in (1, 2, 4, 8):
+        t0 = time.perf_counter()
+        for _ in time_sharded_receive_chunked(
+                iq, Mesh(["cuda:0"] * s, ("time",)), MODE, stereo=True,
+                with_rds=True):
+            pass
+        wall = time.perf_counter() - t0
+        print(f"timing [{smi}]: {secs:.2f} s capture time-sharded chunked "
+              f"S={s} on cuda:0: {wall:.3f} s, {wall / secs * 1e3:.2f} ms "
+              f"per second of signal, {secs / wall:.1f}x real time")
+
+
 def phase_timing(smi: str, k1: dict, k2: dict, k3: dict, k4: dict,
-                 k5: dict) -> dict:
+                 k5: dict, k6: dict) -> dict:
     mc = cfg.get_mode_config(MODE)
     bs = mc.default_block_size(True)
     n_iq = bs // 2
@@ -592,6 +799,13 @@ def phase_timing(smi: str, k1: dict, k2: dict, k3: dict, k4: dict,
     _time_wideband(smi, 2, WIDE_FS, WIDE_OFFSETS, rng, 10)
     _time_wideband(smi, 64, 2 * WIDE_FS,
                    [(k - 32) * 200e3 for k in range(64)], rng, 5)
+    rows, plain, halo = k6["cases"]["S=8 C=1"]
+    kms = cuda_ms(lambda: khalo.halo_shift_right(rows, halo), 50)
+    pms = cuda_ms(lambda: khalo.halo_fill_plain(plain, halo), 50)
+    print(f"timing [{smi}]: K6 halo_shift_right S=8 C=1 halo {halo}: kernel "
+          f"{kms:.4f} ms, plain {pms:.4f} ms")
+    times["halo_shift_right"] = (kms, pms)
+    _time_sharding(smi, rng)
     return times
 
 
@@ -604,18 +818,23 @@ def main() -> int:
     k3 = check_k3(rng)
     k5 = check_k5(h, rng)
     k4 = check_k4(h, rng)
+    k6 = check_k6(rng)
     main_path = phase_main_path(rng)
     wideband = phase_cli(main_path["capture"])
-    times = phase_timing(smi, k1, k2, k3, k4, k5)
+    sharded = phase_time_sharded(rng)
+    times = phase_timing(smi, k1, k2, k3, k4, k5, k6)
     errs = {"fir_frontend_u8": k1["max_abs_err"],
             "pll_angles": k2["max_abs_err"], "pll_mixer": k3["max_abs_err"],
             "fir_decim_i8": k4["max_abs_err"],
-            "fir_decim_f32": k5["max_abs_err"]}
+            "fir_decim_f32": k5["max_abs_err"],
+            "halo_shift_right": k6["max_abs_err"]}
     # each kernel's launches on its path: K1-K3 on the main path, K5 on the
-    # wideband CLI, K4 (on no path) in its phase-2 check
+    # wideband CLI, K6 on the time-sharded path, K4 (on no path) in its
+    # phase-2 check
     launches = dict(main_path["launches"],
                     fir_decim_i8=k4["launches"],
-                    fir_decim_f32=wideband["launches"]["fir_decim_f32"])
+                    fir_decim_f32=wideband["launches"]["fir_decim_f32"],
+                    halo_shift_right=sharded["launches"]["halo_shift_right"])
     kernels = [{"name": name, "route": spec["route"],
                 "source": spec["source"], "replaces": spec["replaces"],
                 "launches": launches[name],

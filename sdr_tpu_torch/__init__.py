@@ -12,6 +12,10 @@ reference its tests hold it against.  It imports ``torch`` and never
   ``pll_cuda``: K2, K3)
 * ``sdr_tpu_torch.models``     — the per-block receiver DAG, the wideband
   channelizer, and the host RDS decode and group layer
+* ``sdr_tpu_torch.parallel``   — the scale-out layer: a channel batch
+  sharded over devices, and one recording time-sharded over S shards
+  with the halo exchange K6 (``parallel.halo``); a ``Mesh`` may name one
+  card S times, and the shards that share a card run as one batch
 * ``sdr_tpu_torch.cli``        — the command-line receiver,
   ``python -m sdr_tpu_torch.cli``
 * ``sdr_tpu_torch.checkpoint`` — the receiver state as ``.npz``, in the

@@ -109,8 +109,15 @@ def load() -> ctypes.CDLL:
     lib.sdr_pll_angles.argtypes = [p, p, p, p, p, i, i, p]
     # xs, mix, carry0, consts, mixer, carry_out, n, lanes, stream
     lib.sdr_pll_mixer.argtypes = [p, p, p, p, p, p, i, i, p]
+    # device, src table, dst table (host arrays of device pointers),
+    # shards, rows, n, src_stride, dst_stride, stream
+    table = ctypes.POINTER(ctypes.c_void_p)
+    lib.sdr_halo_shift.argtypes = [i, table, table, i, i, q, q, q, p]
+    # device, peer
+    lib.sdr_halo_enable_peer.argtypes = [i, i]
     for fn in (lib.sdr_fir_frontend_u8, lib.sdr_fir_decim_f32,
-               lib.sdr_fir_decim_i8, lib.sdr_pll_angles, lib.sdr_pll_mixer):
+               lib.sdr_fir_decim_i8, lib.sdr_pll_angles, lib.sdr_pll_mixer,
+               lib.sdr_halo_shift, lib.sdr_halo_enable_peer):
         fn.restype = ctypes.c_int
     return lib
 

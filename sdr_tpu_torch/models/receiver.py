@@ -381,6 +381,68 @@ def process_block(iq: torch.Tensor, coeffs: ReceiverCoeffs,
     return out, new_state
 
 
+def map_state(fn, *trees):
+    """``fn`` applied leaf by leaf over NamedTuples of tensors of one type
+    (a ``ReceiverState`` with its ``PllState`` leaves, or ``BlockOutputs``)."""
+    if isinstance(trees[0], tuple):
+        return type(trees[0])(*[map_state(fn, *leaves)
+                                for leaves in zip(*trees)])
+    return fn(*trees)
+
+
+def process_block_channel_chunked(iq: torch.Tensor, coeffs: ReceiverCoeffs,
+                                  state: ReceiverState, mc: cfg.ModeConfig,
+                                  stereo: bool = True,
+                                  with_rds: bool = False,
+                                  channel_chunk: int = 512,
+                                  **kernel_kw
+                                  ) -> tuple[BlockOutputs, ReceiverState]:
+    """``process_block`` over a large channel batch as sequential
+    sub-batches of ``channel_chunk`` channels.
+
+    Port of the JAX package's function of the same name, which runs a
+    C=1024 batch as two 512-channel programs because its per-channel block
+    cost is lowest at C~512.  Falls through to ``process_block`` when the
+    batch is not a whole number (>1) of chunks; the leading batch dim must
+    be 1-D (C,).  ``kernel_kw`` (``fused_mixer``, ``rds_debug_q``) go to
+    every chunk, so by default each chunk takes the PLL kernel its own lane
+    count selects."""
+    lead = iq.shape[:-1]
+    if len(lead) != 1 or lead[0] <= channel_chunk \
+            or lead[0] % channel_chunk:
+        return process_block(iq, coeffs, state, mc, stereo=stereo,
+                             with_rds=with_rds, **kernel_kw)
+    parts = []
+    for c0 in range(0, lead[0], channel_chunk):
+        rows = slice(c0, c0 + channel_chunk)
+        parts.append(process_block(
+            iq[rows], coeffs, map_state(lambda a: a[rows], state), mc,
+            stereo=stereo, with_rds=with_rds, **kernel_kw))
+    cat = lambda *xs: torch.cat(xs)
+    return (map_state(cat, *[o for o, _ in parts]),
+            map_state(cat, *[st for _, st in parts]))
+
+
+def run_blocks(iq_blocks: torch.Tensor, coeffs: ReceiverCoeffs,
+               state: ReceiverState, mc: cfg.ModeConfig, stereo: bool = True,
+               with_rds: bool = False, fused_mixer: bool | None = None
+               ) -> tuple[BlockOutputs, ReceiverState]:
+    """Stream blocks through :func:`process_block`: the counterpart of the
+    JAX package's ``run_blocks_scan``, a Python loop where JAX scans.
+
+    ``iq_blocks`` is (n_blocks, ..., block_len): the block axis first, then
+    optional channel-batch dims.  Returns the outputs stacked
+    (n_blocks, ..., out_len) and the final state.  ``fused_mixer`` pins the
+    PLL kernel for every block (None: ``process_block``'s shape policy)."""
+    outs = []
+    for b in range(iq_blocks.shape[0]):
+        out, state = process_block(iq_blocks[b], coeffs, state, mc,
+                                   stereo=stereo, with_rds=with_rds,
+                                   fused_mixer=fused_mixer)
+        outs.append(out)
+    return map_state(lambda *arm: torch.stack(arm), *outs), state
+
+
 def pin_fp32_matmul() -> None:
     """Turn TF32 off for matrix products and convolutions.  The FIRs need
     full fp32: TF32 keeps ~1e-3 relative precision, where the JAX package's
@@ -427,6 +489,16 @@ class Receiver:
             stereo=self.stereo, with_rds=self.with_rds)
         return out
 
+    def _run_blocks(self, iq: torch.Tensor, n_blocks: int,
+                    block_size: int) -> BlockOutputs:
+        # one copy into block-major layout, so every block is contiguous
+        blocks = iq[..., : n_blocks * block_size].reshape(
+            iq.shape[:-1] + (n_blocks, block_size)).movedim(-2, 0)
+        outs, self.state = run_blocks(blocks.contiguous(), self.coeffs,
+                                      self.state, self.mc, self.stereo,
+                                      self.with_rds)
+        return outs
+
     def run(self, iq, block_size: Optional[int] = None) -> BlockOutputs:
         """Stream a whole recording block by block; returns the per-block
         outputs stacked on a new leading block axis."""
@@ -437,9 +509,24 @@ class Receiver:
         if n_blocks == 0:
             raise ValueError(f"capture of {iq.shape[-1]} samples is shorter "
                              f"than one block of {block_size}")
-        # one copy into block-major layout, so every block is contiguous
-        blocks = iq[..., : n_blocks * block_size].reshape(
-            iq.shape[:-1] + (n_blocks, block_size)).movedim(-2, 0)
-        blocks = blocks.contiguous()
-        outs = [self.process(blocks[b]) for b in range(n_blocks)]
-        return BlockOutputs(*[torch.stack(arm) for arm in zip(*outs)])
+        return self._run_blocks(iq, n_blocks, block_size)
+
+    def iter_run(self, iq, block_size: Optional[int] = None,
+                 chunk_blocks: int = 64):
+        """Stream a long recording in chunks of ``chunk_blocks`` blocks.
+
+        Device and host memory stay O(chunk) however long the capture: each
+        chunk is converted and copied to the device on its own, and its
+        outputs come back as host numpy arrays (``BlockOutputs`` stacked
+        (blocks, ..., out_len)).  The state carries across chunks, so the
+        chunks concatenate bit-identically to one :meth:`run`."""
+        if block_size is None:
+            block_size = self.mc.default_block_size(self.with_rds)
+        if isinstance(iq, torch.Tensor):
+            iq = iq.detach().cpu().numpy()
+        n_blocks = iq.shape[-1] // block_size
+        for k0 in range(0, n_blocks, chunk_blocks):
+            k1 = min(k0 + chunk_blocks, n_blocks)
+            chunk = self._as_input(iq[..., k0 * block_size: k1 * block_size])
+            outs = self._run_blocks(chunk, k1 - k0, block_size)
+            yield map_state(lambda a: a.cpu().numpy(), outs)

@@ -14,7 +14,10 @@ PLL gate of 1e-4, though with every rounding explicit they are expected
 bit-equal; the receiver on the card (u8 input: K1; float input: K5)
 against the receiver on the CPU at 1e-5 on fm_demod and 5e-3 on the
 PLL-driven arms (the FIR products sum in other orders on the two devices,
-and the PLL lock transient amplifies ulps).
+and the PLL lock transient amplifies ulps).  K6, the halo copy of time
+sharding, is bit-equal to its plain version: on one card (a 1-D row of
+shards and a channel x time grid, float4 and odd lengths, a misaligned
+view) and across two cards (skipped, with the reason, on one).
 """
 
 import numpy as np
@@ -28,6 +31,9 @@ from sdr_tpu_torch import stimulus
 from sdr_tpu_torch.models import receiver as prx
 from sdr_tpu_torch.ops import fir_decim, fir_frontend, pll_cuda
 from sdr_tpu_torch.ops import pll as tpll
+from sdr_tpu_torch.parallel import halo as phalo
+from sdr_tpu_torch.parallel import time_shard as pts
+from sdr_tpu_torch.parallel.mesh import Mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -183,3 +189,124 @@ def test_receiver_on_card_matches_cpu(dev, c):
     _close(og.fm_demod, oc.fm_demod, 1e-5)
     for f in ("left", "right", "rds_symbols"):
         _close(getattr(og, f), getattr(oc, f), 5e-3)
+
+
+# --- K6: the halo exchange of time sharding ---------------------------------
+
+
+def _shard_rows(grid, c: int, halo: int, seg: int, seed: int,
+                offset: int = 0):
+    """Shard buffers [halo | segment] (c rows each) on the devices of
+    ``grid`` (time rows of devices): random segments, NaN halo slots.  With
+    ``offset``, each buffer is a view that starts ``offset`` floats into
+    its allocation (a pointer that is not 16-byte aligned)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for devs in grid:
+        row = []
+        for d in devs:
+            base = torch.full((c, offset + halo + seg), float("nan"),
+                              device=d)
+            buf = base[:, offset:]
+            buf[:, halo:] = torch.from_numpy(
+                rng.standard_normal((c, seg)).astype(np.float32))
+            row.append(buf)
+        rows.append(row)
+    return rows
+
+
+def _k6_against_plain(rows, halo: int) -> None:
+    want = [[b.clone() for b in row] for row in rows]
+    phalo.halo_fill_plain(want, halo)
+    before = phalo.halo_shift_right.launches
+    phalo.halo_shift_right(rows, halo)
+    torch.cuda.synchronize()
+    assert phalo.halo_shift_right.launches > before
+    for row, ref in zip(rows, want):
+        for b, w in zip(row, ref):
+            assert torch.equal(b, w)
+    assert not rows[0][0][:, :halo].any()
+
+
+@pytest.mark.parametrize("grid", [(1, 8), (2, 4)])
+@pytest.mark.parametrize("c", [1, 4])
+@pytest.mark.parametrize("halo", [230_400, 38_400, 1_001])
+def test_k6_one_card_matches_plain(dev, grid, c, halo):
+    """S shards on one card: a row of 8, or a 2 x 4 channel x time grid;
+    mode 0's RDS halo and mode 3's (float4 path), and an odd length
+    (scalar path)."""
+    rows = _shard_rows([[dev] * grid[1]] * grid[0], c, halo, halo + 64,
+                       seed=halo + c)
+    before = phalo.halo_shift_right.launches
+    _k6_against_plain(rows, halo)
+    assert phalo.halo_shift_right.launches == before + 1
+
+
+def test_k6_misaligned_view_matches_plain(dev):
+    rows = _shard_rows([[dev] * 4], 3, 4_096, 5_000, seed=9, offset=1)
+    assert rows[0][0].data_ptr() % 16
+    _k6_against_plain(rows, 4_096)
+
+
+def test_k6_two_cards_matches_plain(dev):
+    """Shards on two cards, each reading its left neighbour over peer
+    access; no synchronize between the upload and the kernel."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs 2 CUDA devices for peer access, found "
+                    f"{torch.cuda.device_count()}")
+    a, b = torch.device("cuda", 0), torch.device("cuda", 1)
+    for grid in ([[a, a, b, b]], [[a, b, a, b], [b, a, b, a]]):
+        _k6_against_plain(_shard_rows(grid, 2, 230_400, 230_464, seed=3),
+                          230_400)
+
+
+def test_time_sharded_two_cards_matches_one_card(dev):
+    """S=4 shards, two on each of two cards (shard 2 reads shard 1's tail
+    over peer access), against the same shards all on one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs 2 CUDA devices for peer access, found "
+                    f"{torch.cuda.device_count()}")
+    res = synth.synthesize_fm(duration_s=0.12, mode=0, with_stereo=True,
+                              with_rds=True, seed=22)
+    iq = synth.u8_to_float(res.iq_u8)[: 4 * 7 * 19_200]
+    kw = dict(stereo=True, with_rds=True, overlap_if=1920, block_if=960)
+    two = Mesh(["cuda:0", "cuda:0", "cuda:1", "cuda:1"], ("time",))
+    before = phalo.halo_shift_right.launches
+    o2 = pts.time_sharded_receive(iq, two, 0, **kw)
+    assert phalo.halo_shift_right.launches == before + 2
+    o1 = pts.time_sharded_receive(iq, Mesh([dev] * 4, ("time",)), 0, **kw)
+    _close(o2.fm_demod, o1.fm_demod, 1e-5)
+    for f in ("left", "right", "rds_symbols"):
+        _close(getattr(o2, f), getattr(o1, f), 5e-3)
+
+
+@pytest.mark.parametrize("bad", ["mix", "dtype", "stride"])
+def test_k6_wrapper_raises(dev, bad):
+    ok = torch.zeros(2, 64, device=dev)
+    other = {"mix": torch.zeros(2, 64),
+             "dtype": torch.zeros(2, 64, dtype=torch.float64, device=dev),
+             "stride": torch.zeros(64, 2, device=dev).t()}[bad]
+    with pytest.raises(TypeError if bad == "dtype" else ValueError):
+        phalo.halo_shift_right([[ok, other]], 16)
+
+
+def test_time_sharded_on_card_matches_cpu_and_chunked(dev):
+    """S=4 shards on one card against the same run on the CPU (1e-5 on
+    fm_demod, 5e-3 on the PLL arms, as for the receiver); the chunked path
+    equals the single-shot one bit for bit on the card."""
+    res = synth.synthesize_fm(duration_s=0.12, mode=0, with_stereo=True,
+                              with_rds=True, seed=21)
+    iq = synth.u8_to_float(res.iq_u8)[: 4 * 7 * 19_200]
+    kw = dict(stereo=True, with_rds=True, overlap_if=1920, block_if=960)
+    before = phalo.halo_shift_right.launches
+    og = pts.time_sharded_receive(iq, Mesh([dev] * 4, ("time",)), 0, **kw)
+    assert phalo.halo_shift_right.launches == before + 1
+    oc = pts.time_sharded_receive(iq, Mesh(["cpu"] * 4, ("time",)), 0, **kw)
+    _close(og.fm_demod, oc.fm_demod, 1e-5)
+    for f in ("left", "right", "rds_symbols"):
+        _close(getattr(og, f), getattr(oc, f), 5e-3)
+    chunks = list(pts.time_sharded_receive_chunked(
+        iq, Mesh([dev] * 4, ("time",)), 0, chunk_blocks=3, **kw))
+    got = pts.assemble_time_chunks(chunks)
+    for f in ("fm_demod", "mono", "left", "right", "rds_symbols"):
+        np.testing.assert_array_equal(got[f], getattr(og, f).cpu().numpy())

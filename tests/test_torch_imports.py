@@ -20,7 +20,7 @@ PORT = ROOT / "sdr_tpu_torch"
 FORBIDDEN = ("jax", "sdr_tpu.models", "sdr_tpu.ops", "sdr_tpu.parallel",
              "sdr_tpu.checkpoint", "sdr_tpu.cli")
 KERNEL_MODULES = ("ops/fir_frontend.py", "ops/fir_decim.py",
-                  "ops/pll_cuda.py", "kernels/build.py")
+                  "ops/pll_cuda.py", "parallel/halo.py", "kernels/build.py")
 
 
 def _port_modules() -> list[str]:
@@ -93,6 +93,7 @@ def test_kernel_modules_import_no_triton_or_nvcc_at_import():
 import sys
 from sdr_tpu_torch.kernels import build
 from sdr_tpu_torch.ops import fir_decim, fir_frontend, pll_cuda
+from sdr_tpu_torch.parallel import halo
 assert build.load.cache_info().currsize == 0
 assert "triton" not in sys.modules
 print("ok")

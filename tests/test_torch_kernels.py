@@ -246,7 +246,7 @@ class TestBuild:
         assert p.parent.parent == build.BUILD_ROOT
         assert {s.name for s in build._sources()} == {"fir_decim.cu",
                                                       "fir_frontend_u8.cu",
-                                                      "pll.cu"}
+                                                      "halo.cu", "pll.cu"}
 
     def test_check_raises_on_error_code(self):
         build.check(0, "k")
