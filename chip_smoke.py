@@ -11,8 +11,10 @@ Phases, one line of output each (any failure raises and exits non-zero):
    and builds the CUDA kernels from ``sdr_tpu_torch/csrc`` with nvcc;
 2. kernels against their plain PyTorch versions at the paths' shapes:
    K1 ``fir_frontend_u8`` (C=1, C=512, a short block, a 4-block chain),
-   K2 ``pll_angles`` (C=1 x 2 arms, 3 chained blocks), K3 ``pll_mixer``
-   (C=512 x 2 arms), K5 ``fir_decim_f32`` (the receiver's float front-end
+   K2 ``pll_angles`` and K3 ``pll_mixer`` bit-equal (C=1 x 2 arms over 3
+   chained blocks, C=512 x 2 arms, the time-sharded step's 16 lanes, and
+   ragged lane and step counts), the chain floor against K2's recurrence,
+   K5 ``fir_decim_f32`` (the receiver's float front-end
    at C=1 and C=512, the channelizer's FIR at C=2 and C=64 with D=4 and
    D=8, a 3-block chain), K4 ``fir_decim_i8`` (C=1, C=512, a short
    block), K6 ``halo_shift_right`` (S=8 shards on one card with C=1 and
@@ -34,12 +36,21 @@ Phases, one line of output each (any failure raises and exits non-zero):
    checked against what each station transmitted;
 4. timing with CUDA events: block time and IQ rate at C=1 and C=512, the
    wideband block (channelizer + receiver) at C=2 and C=64, each kernel
-   against its plain version, and a 60 s capture time-sharded at S = 1,
-   2, 4, 8 on the card against its contiguous run (host clock).
+   against its plain version, its bound and, where one PyTorch call
+   computes the same function, that call (K5: ``conv1d`` at stride D; K6:
+   one ``copy_``); the PLL chain floor and K2/K3 at 2, 16 and 1,024
+   lanes; and a 60 s capture time-sharded at S = 1, 2, 4, 8 on the card
+   against its contiguous run (host clock).
+
+A kernel's bound is the larger of its bytes over 3.35 TB/s and its fp32
+operations over 67 TFLOP/s (the H100 SXM's published peaks), and for the
+serial PLL kernels K2/K3 the larger of that and the measured chain floor.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
-reports them, a JSON object with one entry per kernel, and
-``{"ok": true, "device": {...}}``.  TF32 is turned off.
+reports them, a JSON object with one entry per kernel (launches on its path
+and per block of it, max abs error against the plain version, kernel,
+plain, bound and library-call milliseconds), and ``{"ok": true, "device":
+{...}}``.  TF32 is turned off.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ import torch
 
 import sdr_tpu_torch
 from sdr_tpu_torch import cli, stimulus
+from sdr_tpu_torch import config as cfg
 from sdr_tpu_torch.kernels import build
 from sdr_tpu_torch.models import rds_decode
 from sdr_tpu_torch.models import receiver as rx
@@ -68,15 +80,13 @@ from sdr_tpu_torch.parallel import (Mesh, assemble_time_chunks,
                                     gather_channels, time_sharded_receive,
                                     time_sharded_receive_chunked)
 from sdr_tpu_torch.parallel import halo as khalo
-from sdr_tpu import config as cfg
-from sdr_tpu.utils import synth
+from sdr_tpu_torch.utils import synth
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"     # captures and CLI outputs
 MODE = 0
 SEED = 20261016
 K1_ATOL = 1e-5    # fp32 FIR, two summation orders (also K4, K5)
-PLL_ATOL = 1e-4   # the JAX package's gate for its PLL kernel
 ROW0_ATOL = 1e-4  # channel 0 of C=512 (K3) against a C=1 run (K2)
 SEP_DB = 30.0
 LINEAR_ATOL = 1e-5   # time-sharded fm_demod/mono against contiguous
@@ -85,6 +95,13 @@ RELOCK_RMS = 1e-4    # left after RELOCK_SKIP: RMS error / reference RMS
 RELOCK_SKIP = 8000   # audio samples (tests/test_parallel.py)
 CHANNEL_ATOL = 1e-4  # channel-sharded against per-channel runs
 SHARDS = 8
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
+FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+# float operations of one step of one PLL lane as csrc/pll.cu writes them:
+# K2's chain (3 multiplies, 9 adds or subtracts, the wraps' included); K3
+# adds the NCO's multiply-add, a cosf (counted as 20) and the mixer's
+# two multiplies
+PLL_STEP_OPS = {"pll_angles": 12, "pll_mixer": 12 + 2 + 20 + 2}
 
 KERNELS = {
     "fir_frontend_u8": dict(
@@ -227,40 +244,88 @@ def _pll_setup(x: torch.Tensor, mixer: bool):
     return ly, ly.consts(mixer), ly.carry0(st, mixer)
 
 
-def check_k2(rng) -> dict:
-    """K2 against its plain version over 3 chained 5,760-sample blocks at
-    C=1 x 2 arms (pilot + RDS carrier)."""
-    n = 5760
-    x, _ = _pll_inputs(rng, 1, 3 * n)
-    ly, consts, ck = _pll_setup(x[..., :n], mixer=False)
+def _wild(carry: torch.Tensor) -> torch.Tensor:
+    """A carry whose phases lie far outside [0, m) and whose wrapped angle
+    lies outside [-pi, pi): the kernels' first tile leaves the shortcuts'
+    ranges and is replayed exactly."""
+    carry = carry.clone()
+    carry[1] = 100.0 + torch.arange(carry.shape[1], device=carry.device)
+    carry[2, ::2] = -37.5
+    carry[3] = 9.0
+    return carry
+
+
+def _pll_chain(kind: str, x, mix, blocks: int, n: int,
+               wild: bool = False) -> float:
+    """``blocks`` chained blocks of ``n`` steps of K2 (``kind`` "K2") or K3
+    against the plain version, each side carrying its own state (``wild``:
+    from :func:`_wild`'s carry): outputs and carries must be equal
+    (torch.equal); returns the max abs error (0.0)."""
+    mixer = kind == "K3"
+    ly, consts, ck = _pll_setup(x[..., :n], mixer)
+    if wild:
+        ck = _wild(ck)
     cp = ck
-    worst = 0.0
-    for b in range(3):
+    for b in range(blocks):
         xs = ly.time_major(x[..., b * n:(b + 1) * n])
-        ak, ck = pll_cuda.pll_angles(xs, ck, consts)
-        ap, cp = pll_cuda.pll_angles_plain(xs, cp, consts)
-        worst = max(worst, max_err(ak, ap), max_err(ck, cp))
-    if worst > PLL_ATOL:
-        raise AssertionError(f"K2: max err {worst:.3g} > {PLL_ATOL}")
-    print(f"K2 pll_angles vs plain: C=1 x 2 arms, 3 chained blocks: max abs "
-          f"err {worst:.3g} (atol {PLL_ATOL}; 0 means bit-equal)")
-    return {"max_abs_err": worst, "case": (xs, ck, consts)}
+        if mixer:
+            ms = ly.time_major(mix[..., b * n:(b + 1) * n])
+            ok, ck = pll_cuda.pll_mixer(xs, ms, ck, consts)
+            op, cp = pll_cuda.pll_mixer_plain(xs, ms, cp, consts)
+        else:
+            ok, ck = pll_cuda.pll_angles(xs, ck, consts)
+            op, cp = pll_cuda.pll_angles_plain(xs, cp, consts)
+        torch.cuda.synchronize()
+        if not (torch.equal(ok, op) and torch.equal(ck, cp)):
+            raise AssertionError(
+                f"{kind} lanes {xs.shape[1]} n {n} block {b}: differs from "
+                f"its plain version (max abs err "
+                f"{max(max_err(ok, op), max_err(ck, cp)):.3g})")
+    return max(max_err(ok, op), max_err(ck, cp))
 
 
-def check_k3(rng) -> dict:
-    """K3 against its plain version: C=512 x 2 arms, one 5,760 block."""
+def check_pll(rng) -> dict:
+    """K2 and K3 against their plain versions, bit for bit (torch.equal on
+    outputs and carries): the main path's shapes (K2 at C=1 x 2 arms over
+    3 chained blocks, K3 at C=512 x 2 arms), the time-sharded step's 16
+    lanes (S=8 x 2 arms, K2, 3 chained blocks), and ragged shapes: 6 and
+    1,030 lanes (neither a multiple of 32 nor of 4: padded rows), 960-step
+    blocks chained across the kernels' 64-step tiles, N = 1, a 5,760 +
+    37-step tail block, and a carry out of the shortcuts' ranges (the
+    kernels' exact replay).  Then the chain floor against K2's recurrence
+    on the floor's own input pattern."""
     n = 5760
+    cases = []
+    for kind, c, steps, blocks, wild in (
+            ("K2", 1, n, 3, False), ("K3", 512, n, 1, False),
+            ("K2", 8, n, 3, False), ("K2", 3, 960, 3, False),
+            ("K3", 3, 960, 3, False), ("K2", 515, 960, 2, False),
+            ("K3", 515, 960, 2, False), ("K2", 1, 1, 3, False),
+            ("K3", 1, 1, 3, False), ("K2", 2, n + 37, 1, False),
+            ("K3", 2, n + 37, 1, False), ("K3", 1, n, 2, False),
+            ("K2", 3, 960, 2, True), ("K3", 3, 960, 2, True)):
+        x, mix = _pll_inputs(rng, c, steps * blocks)
+        _pll_chain(kind, x, mix, blocks, steps, wild)
+        cases.append(f"{kind} {2 * c}x{steps}x{blocks}"
+                     + (" (out-of-range carry: replayed)" if wild else ""))
+    print("K2 pll_angles / K3 pll_mixer vs plain, bit-equal (torch.equal, "
+          "outputs and carries; lanes x steps x chained blocks): "
+          + ", ".join(cases))
+    x, mix = _pll_inputs(rng, 1, n)
+    ly, consts, c0 = _pll_setup(x, mixer=False)
+    k2_case = (ly.time_major(x), c0, consts)
     x, mix = _pll_inputs(rng, 512, n)
-    ly, consts, c0 = _pll_setup(x, mixer=True)
-    xs, ms = ly.time_major(x), ly.time_major(mix)
-    mk, ck = pll_cuda.pll_mixer(xs, ms, c0, consts)
-    mp, cp = pll_cuda.pll_mixer_plain(xs, ms, c0, consts)
-    worst = max(max_err(mk, mp), max_err(ck, cp))
-    if worst > PLL_ATOL:
-        raise AssertionError(f"K3: max err {worst:.3g} > {PLL_ATOL}")
-    print(f"K3 pll_mixer vs plain: C=512 x 2 arms, 1 block: max abs err "
-          f"{worst:.3g} (atol {PLL_ATOL}; 0 means bit-equal)")
-    return {"max_abs_err": worst, "case": (xs, ms, c0, consts)}
+    ly, consts3, c03 = _pll_setup(x, mixer=True)
+    k3_case = (ly.time_major(x), ly.time_major(mix), c03, consts3)
+    # the chain floor computes K2's recurrence on its own input pattern
+    got = pll_cuda.chain_floor(c0, consts, n)
+    want = pll_cuda.chain_floor_plain(c0, consts, n)
+    if not torch.equal(got, want):
+        raise AssertionError("chain floor differs from K2's recurrence")
+    print(f"chain floor (one warp, {n} steps, 2 lanes): carry bit-equal to "
+          "the plain loop on its input pattern")
+    return {"max_abs_err": 0.0, "k2": k2_case, "k3": k3_case,
+            "floor": (c0, consts, n)}
 
 
 def _f32_case(rng, shape) -> torch.Tensor:
@@ -342,7 +407,8 @@ def check_k4(h: torch.Tensor, rng) -> dict:
     launches = k4.launches
     print(f"K4 fir_decim_i8 vs plain: C=1, C=512, short block: max abs err "
           f"{worst:.3g} (atol {K1_ATOL}), states equal; {launches} launches")
-    return {"max_abs_err": worst, "cases": cases, "launches": launches}
+    return {"max_abs_err": worst, "cases": cases, "launches": launches,
+            "calls": len(cases)}
 
 
 def _halo_rows(rng, grid: tuple[int, int], c: int, halo: int):
@@ -461,6 +527,16 @@ def phase_main_path(rng) -> dict:
           f"transmitted ({n_groups} groups sent); C=512 x 4 blocks; "
           f"launches {launches}")
 
+    # blocks of the path: receive() runs the capture's whole blocks and its
+    # tail as one more (K1 and K2 at C=1), the batch 4 blocks (K1 and K3)
+    gran = mc.if_block_multiple(True) * 2 * mc.rf_decim
+    usable = len(res.iq_u8) // gran * gran
+    c1_blocks = -(-usable // bs)
+    per_block = {"fir_frontend_u8": launches["fir_frontend_u8"]
+                 / (c1_blocks + 4),
+                 "pll_angles": launches["pll_angles"] / c1_blocks,
+                 "pll_mixer": launches["pll_mixer"] / 4}
+
     # channel 0 of the batch against a single-channel run of the same bytes
     r1 = rx.Receiver(MODE, stereo=True, with_rds=True, device="cuda")
     outs1 = r1.run(batch[0])
@@ -474,7 +550,7 @@ def phase_main_path(rng) -> dict:
         errs.append(e)
     print("main path: C=512 channel 0 vs C=1 per block max abs err "
           + ", ".join(f"{e:.3g}" for e in errs) + f" (atol {ROW0_ATOL})")
-    return {"launches": launches, "capture": res}
+    return {"launches": launches, "per_block": per_block, "capture": res}
 
 
 def _read_wav(path: Path) -> tuple[np.ndarray, np.ndarray]:
@@ -515,6 +591,7 @@ def phase_cli(res) -> dict:
     """The CLI in process: ``--wideband`` on a 1 s two-station capture,
     then single-station on the capture of the main path.  Launch counts
     are set to 0 before each and read after."""
+    mc = cfg.get_mode_config(MODE)
     WORK.mkdir(parents=True, exist_ok=True)
     wb = synth.synthesize_wideband(duration_s=1.0, fs_wide=WIDE_FS,
                                    offsets_hz=list(WIDE_OFFSETS), mode=MODE,
@@ -540,7 +617,9 @@ def phase_cli(res) -> dict:
             WORK / f"station_{k}.wav", decs[k],
             wb.stations[k].rds_info_bits, 600.0 + 300.0 * k,
             2300.0 - 400.0 * k))
-    print(f"wideband CLI: launches {wide}")
+    blocks = len(wb.iq_u8) // (mc.default_block_size(True)
+                               * int(round(WIDE_FS / mc.rf_fs)))
+    print(f"wideband CLI: launches {wide} over {blocks} wideband blocks")
 
     raw = WORK / "single.raw"
     res.iq_u8.tofile(raw)
@@ -556,7 +635,8 @@ def phase_cli(res) -> dict:
     print("single-station CLI " + _check_station(
         "1 s capture", WORK / "single.wav", decs[0], res.rds_info_bits,
         800.0, 1500.0) + f"; launches {single}")
-    return {"launches": wide}
+    return {"launches": wide,
+            "per_block": wide["fir_decim_f32"] / blocks}
 
 
 def _sharded_gates(label: str, out, ref) -> str:
@@ -634,22 +714,27 @@ def phase_time_sharded(rng) -> dict:
     print(f"time-sharded chunked (7-block chunks, halos sliced on the host): "
           f"{len(chunks)} chunks, bit-equal to the single-shot run")
 
-    # 8 channels: the capture from 8 whole-I/Q-pair offsets, 4 blocks each
-    offs = 2 * rng.integers(0, (len(iq) - 4 * block_raw) // 2, size=8)
+    # 8 channels: the capture from 8 whole-I/Q-pair offsets, 4 blocks each,
+    # drawn from a generator of their own so that they do not move with the
+    # draws of earlier phases
+    offs = 2 * np.random.default_rng(SEED + 4).integers(
+        0, (len(iq) - 4 * block_raw) // 2, size=8)
     chans = np.stack([iq[o:o + 4 * block_raw] for o in offs])
     outs, _ = gather_channels(channel_sharded_run(
         chans, Mesh(["cuda:0"] * 2, ("ch",)), MODE, stereo=True,
         with_rds=True))
-    worst = 0.0
+    errs = {}
     for c in range(8):
         one = rx.Receiver(MODE, stereo=True, with_rds=True,
                           device="cuda").run(chans[c])
-        worst = max(worst, *(max_err(getattr(outs, a)[:, c], getattr(one, a))
-                             for a in ("fm_demod", "mono", "left", "right",
-                                       "rds_symbols")))
+        for a in ("fm_demod", "mono", "left", "right", "rds_symbols"):
+            errs[a] = max(errs.get(a, 0.0),
+                          max_err(getattr(outs, a)[:, c], getattr(one, a)))
+    worst = max(errs.values())
     if not worst <= CHANNEL_ATOL:
         raise AssertionError(f"channel-sharded: max err {worst:.3g} > "
-                             f"{CHANNEL_ATOL}")
+                             f"{CHANNEL_ATOL} (per arm {errs}; offsets "
+                             f"{offs.tolist()})")
     print(f"channel-sharded: 8 channels x 4 blocks over 2 shards of cuda:0 "
           f"vs per-channel runs: max abs err {worst:.3g} (atol "
           f"{CHANNEL_ATOL})")
@@ -666,7 +751,7 @@ def phase_time_sharded(rng) -> dict:
               + _sharded_gates("two cards", out2, ref))
     else:
         print("time-sharded across two cards: not run (1 CUDA device)")
-    return {"launches": launches}
+    return {"launches": launches, "calls": 1}
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -728,8 +813,83 @@ def _time_sharding(smi: str, rng) -> None:
               f"per second of signal, {secs / wall:.1f}x real time")
 
 
-def phase_timing(smi: str, k1: dict, k2: dict, k3: dict, k4: dict,
-                 k5: dict, k6: dict) -> dict:
+def _roofline(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time for ``nbytes`` moved and ``ops`` fp32 operations at
+    the card's published peaks, and which of the two sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bound(nbytes: float, ops: float, floor_ms: float | None = None
+           ) -> tuple[float, str, str, float]:
+    """(bound ms, bound_by, kind, roofline ms): the roofline of
+    :func:`_roofline`, or for the serial PLL kernels the measured chain
+    floor where that is larger (kind "hbm", "fp32" or "serial")."""
+    roof_ms, by = _roofline(nbytes, ops)
+    if floor_ms is not None and floor_ms > roof_ms:
+        return floor_ms, "operations", "serial", roof_ms
+    return roof_ms, by, "hbm" if by == "bytes" else "fp32", roof_ms
+
+
+def _pll_work(kind: str, numel: int) -> tuple[float, float]:
+    """(bytes, operations) of one K2 or K3 call over ``numel`` lane-steps:
+    one float in and one out per lane-step (K3: two in)."""
+    name = "pll_mixer" if kind == "K3" else "pll_angles"
+    return (3 if kind == "K3" else 2) * 4 * numel, PLL_STEP_OPS[name] * numel
+
+
+def _fir_work(n_in: int, in_size: int, n_out: int, taps: int,
+              state: int) -> tuple[float, float]:
+    """(bytes, operations) of a decimating FIR: each input read once, each
+    output written once, the state read and written, one multiply-add per
+    tap and output."""
+    return (n_in * in_size + 4 * n_out + 8 * state + 4 * taps,
+            2.0 * taps * n_out)
+
+
+def _conv1d_ms(x: torch.Tensor, h: torch.Tensor, st: torch.Tensor,
+               d: int) -> tuple[float, float]:
+    """The library yardstick of K5: ``torch.nn.functional.conv1d`` at
+    stride ``d`` over each row's [state | block] (the concatenation made
+    outside the timing), TF32 off.  Returns (ms, max abs difference from
+    K5)."""
+    rows = x.shape[0] * x.shape[1]
+    inp = torch.cat([st, x], dim=-1).reshape(rows, 1, -1).contiguous()
+    w = h.flip(0).reshape(1, 1, -1).contiguous()
+    conv = lambda: torch.nn.functional.conv1d(inp, w, stride=d)
+    ms = cuda_ms(conv, 20)
+    y, _ = fir_decim.fir_block_decim(x, h, st, d)
+    return ms, max_err(conv().reshape(y.shape), y)
+
+
+def _time_pll(smi: str, rng, kind: str, c: int, reps: int,
+              floor_ms: float) -> float:
+    """One 5,760-step block of K2 or K3 at c channels x 2 arms, beside its
+    bound."""
+    n = 5760
+    x, mix = _pll_inputs(rng, c, n)
+    mixer = kind == "K3"
+    ly, consts, c0 = _pll_setup(x, mixer)
+    xs, ms_ = ly.time_major(x), ly.time_major(mix)
+    if mixer:
+        kms = cuda_ms(lambda: pll_cuda.pll_mixer(xs, ms_, c0, consts), reps)
+    else:
+        kms = cuda_ms(lambda: pll_cuda.pll_angles(xs, c0, consts), reps)
+    bound, _, bkind, _ = _bound(*_pll_work(kind, xs.numel()), floor_ms)
+    print(f"timing [{smi}]: {kind} {'pll_mixer' if mixer else 'pll_angles'} "
+          f"{2 * c} lanes x {n}: kernel {kms:.4f} ms "
+          f"({kms / n * 1e6:.1f} ns/step); bound {bound:.4f} ms ({bkind}), "
+          f"{bound / kms:.1%} of it")
+    return kms
+
+
+def phase_timing(smi: str, k1: dict, pll: dict, k4: dict, k5: dict,
+                 k6: dict) -> dict:
+    """Each kernel against its plain version and, where one exists, one
+    PyTorch call computing the same function; the chain floor; block times.
+    Returns per kernel the JSON line's timing and bound fields, at the last
+    shape timed."""
     mc = cfg.get_mode_config(MODE)
     bs = mc.default_block_size(True)
     n_iq = bs // 2
@@ -745,68 +905,95 @@ def phase_timing(smi: str, k1: dict, k2: dict, k3: dict, k4: dict,
               f"{ms:.3f} ms/block, {c * n_iq / ms / 1e3:.2f} IQ Msamples/s "
               f"({24.0 / ms * c:.1f}x real time over all channels)")
     h = rx.design_coeffs(mc, device="cuda").rf
-    times = {}
-    for name in ("C=1", "C=512"):
-        iq, st = k1["cases"][name]
-        kms = cuda_ms(lambda: fir_frontend.fir_frontend_u8(iq, h, st, 10), 50)
-        pms = cuda_ms(lambda: fir_frontend.fir_frontend_u8_plain(iq, h, st,
-                                                                 10), 20)
-        print(f"timing [{smi}]: K1 fir_frontend_u8 {name}: kernel {kms:.4f} "
-              f"ms, plain {pms:.4f} ms")
-        times["fir_frontend_u8"] = (kms, pms)
-    xs, c0, consts = k2["case"]
+    out = {}
+
+    def record(name, kms, pms, nbytes, ops, library_ms=None, floor_ms=None):
+        bound, by, kind, roof_ms = _bound(nbytes, ops, floor_ms)
+        out[name] = dict(ms=kms, plain_ms=pms, bound_ms=bound, bound_by=by,
+                         bound_kind=kind, roofline_ms=roof_ms,
+                         floor_ms=floor_ms, library_ms=library_ms)
+        print(f"timing [{smi}]: {name}: bound {bound:.4f} ms ({kind}; "
+              f"roofline {roof_ms:.4f} ms by {by}); share of bound "
+              f"{bound / kms:.1%}; library call "
+              + (f"{library_ms:.4f} ms" if library_ms is not None
+                 else "none"))
+
+    for key, label, kernel, cases in (
+            ("fir_frontend_u8", "K1 fir_frontend_u8",
+             fir_frontend.fir_frontend_u8, k1),
+            ("fir_decim_i8", "K4 fir_decim_i8",
+             fir_frontend.fir_frontend_u8_deinterleaved, k4)):
+        for name in ("C=1", "C=512"):
+            iq, st = cases["cases"][name]
+            kms = cuda_ms(lambda: kernel(iq, h, st, 10), 50)
+            pms = cuda_ms(lambda: fir_frontend.fir_frontend_u8_plain(
+                iq, h, st, 10), 20)
+            n_out = iq.shape[0] * 2 * (iq.shape[1] // 2 // 10)
+            work = _fir_work(iq.numel(), 1, n_out, h.shape[0], st.numel())
+            bound, _, bkind, _ = _bound(*work)
+            print(f"timing [{smi}]: {label} {name}: kernel {kms:.4f} ms, "
+                  f"plain {pms:.4f} ms; bound {bound:.4f} ms ({bkind}), "
+                  f"{bound / kms:.1%} of it")
+        record(key, kms, pms, *work)
+
+    # the PLLs: the serial floor first, then each kernel at its shapes
+    c0, consts, n = pll["floor"]
+    floor_ms = cuda_ms(lambda: pll_cuda.chain_floor(c0, consts, n), 20)
+    print(f"timing [{smi}]: chain floor (one warp, inputs in registers) "
+          f"{n} steps: {floor_ms:.4f} ms ({floor_ms / n * 1e6:.1f} "
+          "ns/step)")
+    for kind, c in (("K2", 1), ("K2", 8), ("K2", 512), ("K3", 1),
+                    ("K3", 512)):
+        _time_pll(smi, rng, kind, c, 20 if c < 512 else 10, floor_ms)
+    xs, c0, consts = pll["k2"]
     kms = cuda_ms(lambda: pll_cuda.pll_angles(xs, c0, consts), 20)
     pms = cuda_ms(lambda: pll_cuda.pll_angles_plain(xs, c0, consts), 2)
     print(f"timing [{smi}]: K2 pll_angles C=1 x 2 arms x 5760: kernel "
           f"{kms:.4f} ms, plain {pms:.4f} ms")
-    times["pll_angles"] = (kms, pms)
-    xs, ms_, c0, consts = k3["case"]
+    record("pll_angles", kms, pms, *_pll_work("K2", xs.numel()),
+           floor_ms=floor_ms)
+    xs, ms_, c0, consts = pll["k3"]
     kms = cuda_ms(lambda: pll_cuda.pll_mixer(xs, ms_, c0, consts), 10)
     pms = cuda_ms(lambda: pll_cuda.pll_mixer_plain(xs, ms_, c0, consts), 1)
     print(f"timing [{smi}]: K3 pll_mixer C=512 x 2 arms x 5760: kernel "
           f"{kms:.4f} ms, plain {pms:.4f} ms")
-    times["pll_mixer"] = (kms, pms)
-    # each PLL kernel at the other batch too (kernel only): separates what
-    # the lane count costs from what the NCO + mixer work costs
-    for c, mixer in ((512, False), (1, True)):
-        x, mix = _pll_inputs(rng, c, 5760)
-        ly, consts, c0 = _pll_setup(x, mixer)
-        xs = ly.time_major(x)
-        if mixer:
-            ms_ = ly.time_major(mix)
-            kms = cuda_ms(lambda: pll_cuda.pll_mixer(xs, ms_, c0, consts), 10)
-        else:
-            kms = cuda_ms(lambda: pll_cuda.pll_angles(xs, c0, consts), 10)
-        print(f"timing [{smi}]: {'K3 pll_mixer' if mixer else 'K2 pll_angles'}"
-              f" C={c} x 2 arms x 5760: kernel {kms:.4f} ms")
-    for name in ("C=1", "C=512"):
-        iq, st = k4["cases"][name]
-        kms = cuda_ms(lambda: fir_frontend.fir_frontend_u8_deinterleaved(
-            iq, h, st, 10), 50)
-        pms = cuda_ms(lambda: fir_frontend.fir_frontend_u8_plain(iq, h, st,
-                                                                 10), 20)
-        print(f"timing [{smi}]: K4 fir_decim_i8 {name}: kernel {kms:.4f} ms, "
-              f"plain {pms:.4f} ms")
-        times["fir_decim_i8"] = (kms, pms)
-    # the JSON line keeps the last case: the channelizer at C=64, D=8
+    record("pll_mixer", kms, pms, *_pll_work("K3", xs.numel()),
+           floor_ms=floor_ms)
+
+    # K5 at every case; the JSON line keeps the last: the channelizer at
+    # C=64, D=8
     for name, (x, hk, st, d) in k5["cases"].items():
         kms = cuda_ms(lambda: fir_decim.fir_block_decim(x, hk, st, d), 20)
         pms = cuda_ms(lambda: fir_decim.fir_block_decim_plain(x, hk, st, d),
                       10)
-        print(f"timing [{smi}]: K5 fir_decim_f32 {name}: kernel {kms:.4f} ms, "
-              f"plain {pms:.4f} ms")
-        times["fir_decim_f32"] = (kms, pms)
+        lib_ms, lib_err = _conv1d_ms(x, hk, st, d)
+        work = _fir_work(x.numel(), 4, x.numel() // d, hk.shape[0],
+                         st.numel())
+        bound, _, bkind, _ = _bound(*work)
+        print(f"timing [{smi}]: K5 fir_decim_f32 {name}: kernel {kms:.4f} "
+              f"ms, plain {pms:.4f} ms, conv1d {lib_ms:.4f} ms (max abs "
+              f"diff from K5 {lib_err:.3g}); bound {bound:.4f} ms "
+              f"({bkind}), {bound / kms:.1%} of it")
+    record("fir_decim_f32", kms, pms, *work, library_ms=lib_ms)
+
     _time_wideband(smi, 2, WIDE_FS, WIDE_OFFSETS, rng, 10)
     _time_wideband(smi, 64, 2 * WIDE_FS,
                    [(k - 32) * 200e3 for k in range(64)], rng, 5)
     rows, plain, halo = k6["cases"]["S=8 C=1"]
     kms = cuda_ms(lambda: khalo.halo_shift_right(rows, halo), 50)
     pms = cuda_ms(lambda: khalo.halo_fill_plain(plain, halo), 50)
+    # the library yardstick: the S shards as rows of one buffer, every
+    # prefix filled from the row above's tail by one copy_ (shard 0's zero
+    # fill would be a second call)
+    s, c = len(rows[0]), rows[0][0].shape[0]
+    big = torch.cat([b for b in rows[0]])
+    lib_ms = cuda_ms(lambda: big[c:, :halo].copy_(big[:-c, -halo:]), 50)
     print(f"timing [{smi}]: K6 halo_shift_right S=8 C=1 halo {halo}: kernel "
-          f"{kms:.4f} ms, plain {pms:.4f} ms")
-    times["halo_shift_right"] = (kms, pms)
+          f"{kms:.4f} ms, plain {pms:.4f} ms, one copy_ {lib_ms:.4f} ms")
+    record("halo_shift_right", kms, pms, 4 * halo * c * (2 * s - 1), 0.0,
+           library_ms=lib_ms)
     _time_sharding(smi, rng)
-    return times
+    return out
 
 
 def main() -> int:
@@ -814,32 +1001,37 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     h = rx.design_coeffs(cfg.get_mode_config(MODE), device="cuda").rf
     k1 = check_k1(h, rng)
-    k2 = check_k2(rng)
-    k3 = check_k3(rng)
+    pll = check_pll(rng)
     k5 = check_k5(h, rng)
     k4 = check_k4(h, rng)
     k6 = check_k6(rng)
     main_path = phase_main_path(rng)
     wideband = phase_cli(main_path["capture"])
     sharded = phase_time_sharded(rng)
-    times = phase_timing(smi, k1, k2, k3, k4, k5, k6)
+    timing = phase_timing(smi, k1, pll, k4, k5, k6)
     errs = {"fir_frontend_u8": k1["max_abs_err"],
-            "pll_angles": k2["max_abs_err"], "pll_mixer": k3["max_abs_err"],
+            "pll_angles": pll["max_abs_err"],
+            "pll_mixer": pll["max_abs_err"],
             "fir_decim_i8": k4["max_abs_err"],
             "fir_decim_f32": k5["max_abs_err"],
             "halo_shift_right": k6["max_abs_err"]}
     # each kernel's launches on its path: K1-K3 on the main path, K5 on the
     # wideband CLI, K6 on the time-sharded path, K4 (on no path) in its
-    # phase-2 check
+    # phase-2 check; and per block of that path (per call for K4 and K6)
     launches = dict(main_path["launches"],
                     fir_decim_i8=k4["launches"],
                     fir_decim_f32=wideband["launches"]["fir_decim_f32"],
                     halo_shift_right=sharded["launches"]["halo_shift_right"])
+    per_block = dict(main_path["per_block"],
+                     fir_decim_i8=k4["launches"] / k4["calls"],
+                     fir_decim_f32=wideband["per_block"],
+                     halo_shift_right=sharded["launches"][
+                         "halo_shift_right"] / sharded["calls"])
     kernels = [{"name": name, "route": spec["route"],
                 "source": spec["source"], "replaces": spec["replaces"],
                 "launches": launches[name],
-                "max_abs_err": errs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]}
+                "launches_per_block": per_block[name],
+                "max_abs_err": errs[name], **timing[name]}
                for name, spec in KERNELS.items()]
     print(card())
     print(json.dumps({"kernels": kernels}))

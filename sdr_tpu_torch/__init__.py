@@ -4,8 +4,11 @@ kernels hand-written for Hopper (H100).
 Raw 8-bit interleaved I/Q in; mono, stereo L/R and RDS out.  The package
 mirrors ``sdr_tpu``'s layout and contracts, and the JAX package is the
 reference its tests hold it against.  It imports ``torch`` and never
-``jax``: of ``sdr_tpu`` it imports only the modules that load no JAX,
-``config``, ``golden``, ``utils.synth``, ``io`` and ``native``.
+``jax``, and nothing of ``sdr_tpu``: it keeps its own copies of the numpy
+modules it needs (``config``, ``golden.filters``, ``golden.rds``, ``io``,
+``utils.synth``) and its own binding of the shared C++ host runtime
+(``native``).  Its entry points run on the card (``device="cuda"``) unless
+the caller passes ``device="cpu"``.
 
 * ``sdr_tpu_torch.ops``        — FIRs, FM demod and PLL in plain PyTorch,
   and the kernel wrappers (``fir_frontend``: K1, K4; ``fir_decim``: K5;
@@ -35,7 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sdr_tpu.config import (  # noqa: F401
+from sdr_tpu_torch.config import (  # noqa: F401
     Mode,
     ModeConfig,
     custom_mode,
@@ -56,9 +59,10 @@ class ReceiveResult:
 
 
 def receive(iq, mode: int | Mode | ModeConfig = 0, stereo: bool = True,
-            rds: bool = True, device: torch.device | str = "cpu"
+            rds: bool = True, device: torch.device | str = "cuda"
             ) -> ReceiveResult:
-    """Demodulate a whole capture in one call on ``device``.
+    """Demodulate a whole capture in one call on ``device`` (default the
+    card; without one it raises unless ``device="cpu"`` is passed).
 
     ``iq`` is a path to a raw interleaved-u8 file, a u8 array, or a
     normalized float array.  Returns concatenated audio (mono always;
@@ -70,6 +74,7 @@ def receive(iq, mode: int | Mode | ModeConfig = 0, stereo: bool = True,
     from sdr_tpu_torch.models import rds_decode
     from sdr_tpu_torch.models import receiver as rx
 
+    device = rx.resolve_device(device)
     if isinstance(iq, (str, os.PathLike)):
         iq = np.fromfile(iq, dtype=np.uint8)
     iq = np.asarray(iq)

@@ -25,7 +25,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from sdr_tpu import config as cfg
+from sdr_tpu_torch import config as cfg
 from sdr_tpu_torch import convert
 from sdr_tpu_torch.models import receiver as rx
 

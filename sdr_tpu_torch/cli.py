@@ -34,8 +34,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from sdr_tpu import config as cfg
-from sdr_tpu import io as sio
+from sdr_tpu_torch import config as cfg
+from sdr_tpu_torch import io as sio
 from sdr_tpu_torch import checkpoint
 from sdr_tpu_torch.models import rds_decode
 from sdr_tpu_torch.models import receiver as rx
@@ -154,7 +154,7 @@ def _raw_blocks(stream, block_size: int):
     reads ahead of the device) where the stream has a file descriptor and
     the native runtime builds, plain reads otherwise, as the JAX CLI."""
     try:
-        from sdr_tpu import native
+        from sdr_tpu_torch import native
         return native.BlockReader(stream.fileno(), block_size, raw=True)
     except (ImportError, OSError):
         return sio.iter_iq_blocks_raw(stream, block_size)

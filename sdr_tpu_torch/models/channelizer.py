@@ -20,9 +20,9 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from sdr_tpu import config as cfg
-from sdr_tpu.golden import filters as gfilt
-from sdr_tpu_torch.models.receiver import pin_fp32_matmul
+from sdr_tpu_torch import config as cfg
+from sdr_tpu_torch.golden import filters as gfilt
+from sdr_tpu_torch.models.receiver import pin_fp32_matmul, resolve_device
 from sdr_tpu_torch.ops import fir_decim
 from sdr_tpu_torch.ops.fir_frontend import normalize_u8
 
@@ -44,13 +44,15 @@ class Channelizer:
     ``process(block)`` takes interleaved wideband IQ (u8 or float, length
     2*N_wide with N_wide divisible by the decimation) and returns
     (C, 2*N_wide/decim) interleaved float32 on ``device``, ready for a
-    batched ``Receiver``.  Creating one turns TF32 off
+    batched ``Receiver``.  ``device`` defaults to the card; without one it
+    raises unless ``device="cpu"`` is passed.  Creating one turns TF32 off
     (``models.receiver.pin_fp32_matmul``).
     """
 
     def __init__(self, offsets_hz: Sequence[float], fs_wide: float,
                  mode: int | cfg.Mode | cfg.ModeConfig = 0,
-                 taps: int = 151, device: torch.device | str = "cpu"):
+                 taps: int = 151, device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
         pin_fp32_matmul()
         self.mc = (mode if isinstance(mode, cfg.ModeConfig)
                    else cfg.get_mode_config(mode))
@@ -60,7 +62,6 @@ class Channelizer:
             raise ValueError(f"fs_wide {fs_wide} must be an integer "
                              f"multiple of rf_fs {self.mc.rf_fs}")
         self.offsets = tuple(float(f) for f in offsets_hz)
-        self.device = torch.device(device)
         c = len(offsets_hz)
         # anti-alias below the post-decimation Nyquist rf_fs/2
         self.coeffs = torch.tensor(

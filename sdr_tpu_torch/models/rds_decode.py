@@ -4,8 +4,8 @@ Port of ``sdr_tpu/models/rds_decode.py`` (whose package imports JAX):
 ``decode_robust`` for a whole symbol stream, ``StreamingRdsDecoder`` for
 the CLI's per-block decode with carried state, and ``decode_reference``.
 The chain runs at 2375 symbols/s and is control-flow heavy, so it stays on
-the host; it calls the shared numpy oracle ``sdr_tpu.golden.rds`` and the
-port's copy of ``rds_groups``.
+the host; it calls the port's copies of the numpy chain
+``sdr_tpu_torch.golden.rds`` and of ``rds_groups``.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import dataclasses
 
 import numpy as np
 
-from sdr_tpu.golden import rds as grds
+from sdr_tpu_torch.golden import rds as grds
 from sdr_tpu_torch.models import rds_groups
 
 

@@ -31,7 +31,7 @@ from collections import Counter
 
 import numpy as np
 
-from sdr_tpu.golden import rds as grds
+from sdr_tpu_torch.golden import rds as grds
 
 #: offsets of the third block by group version (IEC 62106: version A
 #: groups use offset C, version B groups use offset C').

@@ -27,8 +27,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from sdr_tpu import config as cfg
-from sdr_tpu.golden import filters as gfilt
+from sdr_tpu_torch import config as cfg
+from sdr_tpu_torch.golden import filters as gfilt
 from sdr_tpu_torch.ops import demod as tdemod
 from sdr_tpu_torch.ops import fir as tfir
 from sdr_tpu_torch.ops import fir_decim, fir_frontend
@@ -443,6 +443,17 @@ def run_blocks(iq_blocks: torch.Tensor, coeffs: ReceiverCoeffs,
     return map_state(lambda *arm: torch.stack(arm), *outs), state
 
 
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``device`` as a ``torch.device``; raises RuntimeError for a CUDA
+    device on a machine without one, so that nothing quietly runs on the
+    CPU that the caller did not ask for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but no CUDA device is "
+                           "available: pass device='cpu' to run on the CPU")
+    return dev
+
+
 def pin_fp32_matmul() -> None:
     """Turn TF32 off for matrix products and convolutions.  The FIRs need
     full fp32: TF32 keeps ~1e-3 relative precision, where the JAX package's
@@ -456,19 +467,21 @@ class Receiver:
 
     ``process(iq)`` consumes one block; ``run(iq)`` a whole recording.  The
     state is exposed for checkpoint/resume (``sdr_tpu_torch.convert``).
-    Creating one turns TF32 off (:func:`pin_fp32_matmul`).
+    ``device`` defaults to the card; without one it raises
+    (:func:`resolve_device`) unless ``device="cpu"`` is passed.  Creating
+    one turns TF32 off (:func:`pin_fp32_matmul`).
     """
 
     def __init__(self, mode: int | cfg.Mode | cfg.ModeConfig = 0,
                  stereo: bool = True, with_rds: bool = False,
                  batch_shape: tuple[int, ...] = (),
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
         pin_fp32_matmul()
         self.mc = (mode if isinstance(mode, cfg.ModeConfig)
                    else cfg.get_mode_config(mode))
         self.stereo = stereo
         self.with_rds = with_rds and self.mc.rds is not None
-        self.device = torch.device(device)
         self.coeffs = design_coeffs(self.mc, device=self.device)
         self.state = init_state(self.mc, batch_shape, device=self.device)
 

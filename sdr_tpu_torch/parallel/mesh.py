@@ -3,8 +3,9 @@
 PyTorch has no mesh object, so the scale-out layer carries its own: an
 ndarray of ``torch.device`` with one dimension per axis name.  A device may
 appear more than once: S time shards on one card (``[cuda:0] * S``), or
-``cpu`` S times on a machine without a GPU.  One process drives every
-shard, and the shards that share a device run as rows of one batch there.
+``cpu`` S times, named by the caller, on a machine without a GPU.  One
+process drives every shard, and the shards that share a device run as
+rows of one batch there.
 """
 
 from __future__ import annotations
@@ -63,8 +64,11 @@ class Mesh:
 
 
 def local_devices() -> list[torch.device]:
-    """This process's CUDA devices; ``[cpu]`` on a machine without any."""
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    """This process's CUDA devices.  Raises RuntimeError on a machine
+    without any: a CPU caller names its devices (``Mesh(["cpu"] * S,
+    ...)``, or ``make_mesh(devices=[...])``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: name the devices "
+                           "of a CPU mesh explicitly, e.g. ['cpu'] * S")
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]

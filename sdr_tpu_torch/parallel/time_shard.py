@@ -33,7 +33,7 @@ from typing import Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
-from sdr_tpu import config as cfg
+from sdr_tpu_torch import config as cfg
 from sdr_tpu_torch.models import receiver as rx
 from sdr_tpu_torch.parallel import halo as khalo
 from sdr_tpu_torch.parallel.mesh import Mesh

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (MC, SHORT, TPU_SELECTORS,
+from torch_parity import (PMC, SHORT, TPU_SELECTORS,
                           assert_close, capture, mode0_batch, np_of,
                           run_both)  # noqa: F401
 
@@ -49,10 +49,10 @@ def test_float_input_matches_u8(capture):
     the u8 front-end computes the same filter of the same exact values."""
     iq = capture[:SHORT]
     fl = (iq.astype(np.float32) - 128.0) / 128.0
-    pc = prx.design_coeffs(MC)
-    o8, s8 = prx.process_block(torch.from_numpy(iq), pc, prx.init_state(MC),
-                               MC, True, True)
-    of, sf = prx.process_block(torch.from_numpy(fl), pc, prx.init_state(MC),
-                               MC, True, True)
+    pc = prx.design_coeffs(PMC)
+    o8, s8 = prx.process_block(torch.from_numpy(iq), pc, prx.init_state(PMC),
+                               PMC, True, True)
+    of, sf = prx.process_block(torch.from_numpy(fl), pc, prx.init_state(PMC),
+                               PMC, True, True)
     assert_close(of.fm_demod, o8.fm_demod, 1e-6)
     np.testing.assert_array_equal(np_of(sf.rf_i), np_of(s8.rf_i))

@@ -37,7 +37,7 @@ def test_chained_blocks_match_jax(wideband, dtype):
     if dtype == "float":
         iq = (iq.astype(np.float32) - 128.0) / 128.0
     jc = JaxChannelizer(OFFSETS, FS, 0)
-    pc = Channelizer(OFFSETS, FS, 0)
+    pc = Channelizer(OFFSETS, FS, 0, device="cpu")
     assert pc.decim == jc.decim == 4
     for b in range(3):
         blk = iq[b * BLOCK:(b + 1) * BLOCK]
@@ -56,7 +56,7 @@ def test_long_block_phase_stays_exact():
     n = (1 << 20) + 3072
     iq = np.full(2 * n, 0.25, np.float32)
     jc = JaxChannelizer(OFFSETS, FS, 0)
-    pc = Channelizer(OFFSETS, FS, 0)
+    pc = Channelizer(OFFSETS, FS, 0, device="cpu")
     jc.process(iq)
     pc.process(iq)
     assert_close(pc.state.phi0, jc.state.phi0, 1e-6)
@@ -66,8 +66,8 @@ def test_long_block_phase_stays_exact():
 
 def test_channelizer_refuses_bad_rates_and_blocks():
     with pytest.raises(ValueError):
-        Channelizer(OFFSETS, 9.5e6, 0)       # not a multiple of 2.4 MS/s
-    pc = Channelizer(OFFSETS, FS, 0)
+        Channelizer(OFFSETS, 9.5e6, 0, device="cpu")  # not k x 2.4 MS/s
+    pc = Channelizer(OFFSETS, FS, 0, device="cpu")
     with pytest.raises(ValueError):
         pc.process(np.zeros(2 * 4 * 100 + 2, np.uint8))   # N % 4 != 0
 

@@ -13,21 +13,22 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import mode_configs
+
 from sdr_tpu import checkpoint as jckpt
-from sdr_tpu import config as cfg
 from sdr_tpu.models import receiver as jrx
 from sdr_tpu_torch import checkpoint as pckpt
 from sdr_tpu_torch import convert
 from sdr_tpu_torch.models import receiver as prx
 
-MC = cfg.get_mode_config(0)
+MC, PMC = mode_configs(0)
 
 
 def _flat_state(seed: int, batch=(2,)) -> dict[str, np.ndarray]:
     """A state's flat form with random leaves; the RF tails are
     u8-normalized, so the state may resume a raw-u8 stream."""
     rng = np.random.default_rng(seed)
-    flat = convert.state_to_numpy(prx.init_state(MC, batch))
+    flat = convert.state_to_numpy(prx.init_state(PMC, batch))
     out = {k: rng.standard_normal(v.shape).astype(v.dtype)
            for k, v in flat.items()}
     for k in ("rf_i", "rf_q"):

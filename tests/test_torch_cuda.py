@@ -9,12 +9,14 @@ machine, from the repository root:
 (``--noconftest``: tests/conftest.py configures JAX.)
 
 Tolerances: K1, K4 and K5 at 1e-5 (two fp32 summation orders; the
-carried tails are exact and must be equal); K2/K3 at the JAX package's
-PLL gate of 1e-4, though with every rounding explicit they are expected
-bit-equal; the receiver on the card (u8 input: K1; float input: K5)
-against the receiver on the CPU at 1e-5 on fm_demod and 5e-3 on the
-PLL-driven arms (the FIR products sum in other orders on the two devices,
-and the PLL lock transient amplifies ulps).  K6, the halo copy of time
+carried tails are exact and must be equal); K2/K3 bit-equal (torch.equal
+on outputs and carries, every rounding explicit on both sides), over
+chained blocks at the main path's shapes and at ragged lane and step
+counts, and the chain floor bit-equal to K2's recurrence; the receiver on
+the card (u8 input: K1; float input: K5) against the receiver on the CPU
+at 1e-5 on fm_demod and 5e-3 on the PLL-driven arms (the FIR products sum
+in other orders on the two devices, and the PLL lock transient amplifies
+ulps).  K6, the halo copy of time
 sharding, is bit-equal to its plain version: on one card (a 1-D row of
 shards and a channel x time grid, float4 and odd lengths, a misaligned
 view) and across two cards (skipped, with the reason, on one).
@@ -24,21 +26,20 @@ import numpy as np
 import pytest
 import torch
 
-from sdr_tpu import config as cfg
-from sdr_tpu.golden import filters as gfilt
-from sdr_tpu.utils import synth
+from sdr_tpu_torch import config as cfg
 from sdr_tpu_torch import stimulus
+from sdr_tpu_torch.golden import filters as gfilt
 from sdr_tpu_torch.models import receiver as prx
 from sdr_tpu_torch.ops import fir_decim, fir_frontend, pll_cuda
 from sdr_tpu_torch.ops import pll as tpll
 from sdr_tpu_torch.parallel import halo as phalo
 from sdr_tpu_torch.parallel import time_shard as pts
 from sdr_tpu_torch.parallel.mesh import Mesh
+from sdr_tpu_torch.utils import synth
 
 pytestmark = pytest.mark.cuda
 
 K1_ATOL = 1e-5
-PLL_ATOL = 1e-4
 MC = cfg.get_mode_config(0)
 
 
@@ -57,7 +58,10 @@ def _close(a, b, atol):
 
 
 def _lanes_case(c: int, n: int, mixer: bool, device):
-    """Time-major PLL inputs for c channels x 2 arms (pilot, RDS)."""
+    """Time-major PLL inputs for c channels x 2 arms (pilot, RDS): xs laid
+    out by LaneLayout, mix a plain contiguous (n, 2c) tensor (which the
+    wrapper copies into the kernels' layout when 2c is not a multiple of
+    4)."""
     rng = np.random.default_rng(31 + c)
     x = torch.from_numpy(stimulus.pll_tones(rng, c, n, MC.if_fs)).to(device)
     st0 = prx.init_state(MC, (c,), device=device)
@@ -67,6 +71,13 @@ def _lanes_case(c: int, n: int, mixer: bool, device):
     mix = torch.tensor(rng.standard_normal((n, c * 2)), dtype=torch.float32,
                        device=device)
     return (ly.time_major(x), ly.carry0(st, mixer), ly.consts(mixer), mix)
+
+
+# (channels, steps per block, chained blocks): the main path's C=1 and
+# C=512, the S=8 time-sharded step's 8 rows (16 lanes), lanes that are not
+# a multiple of 32 (6, 1,030), blocks that end inside a 64-step tile, N = 1
+PLL_CASES = [(1, 1920, 3), (512, 1920, 1), (8, 1920, 3), (3, 960, 3),
+             (515, 960, 2), (1, 1, 3), (2, 1997, 2)]
 
 
 @pytest.mark.parametrize("c,n", [(1, 57600), (512, 57600), (2, 140)])
@@ -139,7 +150,7 @@ def test_float_receiver_on_card_matches_cpu(dev):
     iq = synth.synthesize_fm(duration_s=0.02, mode=0, seed=4).iq_u8[:38_400]
     x = np.stack([iq, iq[::-1]]).astype(np.float32) / 128.0 - 1.0
     gpu = prx.Receiver(0, True, True, batch_shape=(2,), device=dev)
-    cpu = prx.Receiver(0, True, True, batch_shape=(2,))
+    cpu = prx.Receiver(0, True, True, batch_shape=(2,), device="cpu")
     before = fir_decim.fir_block_decim.launches
     og = gpu.run(x, block_size=19_200)
     oc = cpu.run(x, block_size=19_200)
@@ -149,26 +160,61 @@ def test_float_receiver_on_card_matches_cpu(dev):
         _close(getattr(og, f), getattr(oc, f), 5e-3)
 
 
-@pytest.mark.parametrize("c", [1, 3, 512])
-def test_k2_kernel_matches_plain(dev, c):
-    xs, c0, consts, _ = _lanes_case(c, 1920, False, dev)
+@pytest.mark.parametrize("c,n,blocks", PLL_CASES)
+def test_k2_kernel_matches_plain(dev, c, n, blocks):
+    xs, c0, consts, _ = _lanes_case(c, n * blocks, False, dev)
     before = pll_cuda.pll_angles.launches
-    ak, ck = pll_cuda.pll_angles(xs, c0, consts)
-    ap, cp = pll_cuda.pll_angles_plain(xs, c0, consts)
-    assert pll_cuda.pll_angles.launches == before + 1
-    _close(ak, ap, PLL_ATOL)
-    _close(ck, cp, PLL_ATOL)
+    ck = cp = c0
+    for b in range(blocks):
+        blk = xs[b * n:(b + 1) * n]
+        ak, ck = pll_cuda.pll_angles(blk, ck, consts)
+        ap, cp = pll_cuda.pll_angles_plain(blk, cp, consts)
+        torch.cuda.synchronize()
+        assert torch.equal(ak, ap) and torch.equal(ck, cp), b
+    assert pll_cuda.pll_angles.launches == before + blocks
 
 
-@pytest.mark.parametrize("c", [1, 512])
-def test_k3_kernel_matches_plain(dev, c):
-    xs, c0, consts, mix = _lanes_case(c, 1920, True, dev)
+@pytest.mark.parametrize("c,n,blocks", PLL_CASES)
+def test_k3_kernel_matches_plain(dev, c, n, blocks):
+    xs, c0, consts, mix = _lanes_case(c, n * blocks, True, dev)
     before = pll_cuda.pll_mixer.launches
-    mk, ck = pll_cuda.pll_mixer(xs, mix, c0, consts)
-    mp, cp = pll_cuda.pll_mixer_plain(xs, mix, c0, consts)
-    assert pll_cuda.pll_mixer.launches == before + 1
-    _close(mk, mp, PLL_ATOL)
-    _close(ck, cp, PLL_ATOL)
+    ck = cp = c0
+    for b in range(blocks):
+        blk, mb = xs[b * n:(b + 1) * n], mix[b * n:(b + 1) * n]
+        mk, ck = pll_cuda.pll_mixer(blk, mb, ck, consts)
+        mp, cp = pll_cuda.pll_mixer_plain(blk, mb, cp, consts)
+        torch.cuda.synchronize()
+        assert torch.equal(mk, mp) and torch.equal(ck, cp), b
+    assert pll_cuda.pll_mixer.launches == before + blocks
+
+
+@pytest.mark.parametrize("mixer", [False, True])
+def test_pll_kernels_replay_out_of_range_carry(dev, mixer):
+    """A carry far outside the shortcuts' ranges (phases beyond 2m, the
+    wrapped angle beyond pi): the kernels replay those tiles with fmodf and
+    the division, and stay bit-equal."""
+    xs, c0, consts, mix = _lanes_case(3, 960, mixer, dev)
+    c0 = c0.clone()
+    c0[1] = 100.0 + torch.arange(c0.shape[1], device=dev)
+    c0[2, ::2] = -37.5
+    c0[3] = 9.0
+    if mixer:
+        got = pll_cuda.pll_mixer(xs, mix, c0, consts)
+        want = pll_cuda.pll_mixer_plain(xs, mix, c0, consts)
+    else:
+        got = pll_cuda.pll_angles(xs, c0, consts)
+        want = pll_cuda.pll_angles_plain(xs, c0, consts)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_chain_floor_matches_plain(dev):
+    """The chain floor runs K2's recurrence on its own input pattern."""
+    _, c0, consts, _ = _lanes_case(1, 4, False, dev)
+    before = pll_cuda.chain_floor.launches
+    got = pll_cuda.chain_floor(c0, consts, 1000)
+    assert torch.equal(got, pll_cuda.chain_floor_plain(c0, consts, 1000))
+    assert pll_cuda.chain_floor.launches == before + 1
 
 
 @pytest.mark.parametrize("c", [1, 512])
@@ -179,7 +225,8 @@ def test_receiver_on_card_matches_cpu(dev, c):
     iq = np.broadcast_to(iq, (c,) + iq.shape) if c > 1 else iq
     gpu = prx.Receiver(0, True, True, batch_shape=(c,) if c > 1 else (),
                        device=dev)
-    cpu = prx.Receiver(0, True, True, batch_shape=(c,) if c > 1 else ())
+    cpu = prx.Receiver(0, True, True, batch_shape=(c,) if c > 1 else (),
+                       device="cpu")
     counts = (pll_cuda.pll_angles.launches, pll_cuda.pll_mixer.launches)
     og = gpu.run(iq, block_size=19_200)
     oc = cpu.run(iq, block_size=19_200)

@@ -26,21 +26,20 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_close, run_both, run_port
+from torch_parity import assert_close, mode_configs, run_both, run_port
 
-from sdr_tpu import config as cfg
 from sdr_tpu.utils import synth
 from sdr_tpu_torch.models import receiver as prx
 from sdr_tpu_torch.ops import fir_decim
 
-CUSTOM = cfg.custom_mode(rf_fs=1.44e6, if_fs=240e3, audio_fs=32e3)
-MODES = {1: cfg.get_mode_config(1), 2: cfg.get_mode_config(2),
-         3: cfg.get_mode_config(3), "custom": CUSTOM}
+# (JAX package's config, port's config) of each mode
+MODES = {1: mode_configs(1), 2: mode_configs(2), 3: mode_configs(3),
+         "custom": mode_configs(rf_fs=1.44e6, if_fs=240e3, audio_fs=32e3)}
 
 
 def _capture(name, n_bytes: int, seed: int = 7) -> np.ndarray:
     """A synthesized stereo (and, in mode 2, RDS) station, raw u8."""
-    mc = MODES[name]
+    mc = MODES[name][0]
     if name != "custom":
         return synth.synthesize_fm(duration_s=n_bytes / 2 / mc.rf_fs,
                                    mode=name, seed=seed,
@@ -64,7 +63,7 @@ def _float(iq_u8: np.ndarray) -> np.ndarray:
 @pytest.mark.parametrize("name", [1, 2, 3, "custom"])
 @pytest.mark.parametrize("dtype", ["u8", "float"])
 def test_mode_two_blocks(name, dtype):
-    mc = MODES[name]
+    mc, pmc = MODES[name]
     with_rds = mc.rds is not None
     bs = mc.default_block_size(with_rds)
     iq = _capture(name, 2 * bs)
@@ -73,18 +72,19 @@ def test_mode_two_blocks(name, dtype):
     else:
         iq = _float(iq)
         jsels = [{}, dict(pallas_frontend=True, mxu_fir=False)]
-    port = run_port(iq, 2, bs, True, with_rds, mc=mc)
+    port = run_port(iq, 2, bs, True, with_rds, mc=pmc)
     if with_rds:
         assert port[0][0].rds_symbols.shape[-1] > 0
     for jsel in jsels:
-        run_both(iq, 2, bs, True, with_rds, jsel, {}, mc=mc, port=port)
+        run_both(iq, 2, bs, True, with_rds, jsel, {}, mcs=MODES[name],
+                 port=port)
 
 
 def test_block_size_invariance():
     """Mode 1 stereo, float input through K5: one double block equals two
     blocks (the overlap-save carries), as tests/test_models_receiver.py
     holds the JAX receiver."""
-    mc = MODES[1]
+    mc = MODES[1][1]
     bs = mc.default_block_size()
     iq = _float(_capture(1, 2 * bs))
     small = run_port(iq, 2, bs, True, False, mc=mc)
@@ -98,7 +98,7 @@ def test_block_size_invariance():
 def test_batch_rows_match_single():
     """Mode 3 stereo, float input: each row of a (2, N) batch equals its
     own single-channel run."""
-    mc = MODES[3]
+    mc = MODES[3][1]
     bs = mc.default_block_size()
     iq = np.stack([_float(_capture(3, bs, seed=s)) for s in (1, 2)])
     rows = run_port(iq, 1, bs, True, False, batch=(2,), mc=mc)[0][0]
@@ -118,7 +118,7 @@ def test_float_input_reaches_k5(monkeypatch):
         return real(*args)
 
     monkeypatch.setattr(fir_decim, "fir_block_decim", spy)
-    mc = MODES["custom"]
+    mc = MODES["custom"][1]
     bs = mc.default_block_size()
     x = torch.from_numpy(_float(_capture("custom", bs)))
     prx.process_block(x, prx.design_coeffs(mc), prx.init_state(mc), mc,

@@ -29,7 +29,8 @@ from jax import shard_map
 from jax.sharding import Mesh as JMesh
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from torch_parity import FM_ATOL, PLL_ARM_ATOL, assert_close, np_of
+from torch_parity import (FM_ATOL, MC, PLL_ARM_ATOL, PMC, assert_close,
+                          mode_configs, np_of)
 
 from sdr_tpu import config as cfg
 from sdr_tpu.models import receiver as jrx
@@ -46,7 +47,6 @@ from sdr_tpu_torch.parallel import multihost as pmh
 from sdr_tpu_torch.parallel import time_shard as pts
 from sdr_tpu_torch.parallel.mesh import Mesh
 
-MC = cfg.get_mode_config(0)
 S = 4
 BLOCK_IF = 960            # mode 0 with RDS: the smallest whole block
 OVERLAP_IF = 1920         # two warm-up blocks
@@ -93,7 +93,7 @@ def sharded(recording):
 @pytest.fixture(scope="module")
 def contiguous(recording):
     """The port's contiguous run of the same recording, same blocks."""
-    r = prx.Receiver(0, stereo=True, with_rds=True)
+    r = prx.Receiver(0, stereo=True, with_rds=True, device="cpu")
     return r.run(recording, block_size=BLOCK_RAW)
 
 
@@ -140,10 +140,10 @@ def test_time_sharded_matches_jax(recording, sharded, name):
 
 def test_default_block_if_matches_jax():
     for mode in range(4):
-        mc = cfg.get_mode_config(mode)
+        mc, pmc = mode_configs(mode)
         for rds in (False, True):
-            assert pts.default_block_if(mc, rds) == jts.default_block_if(mc,
-                                                                         rds)
+            assert pts.default_block_if(pmc, rds) == jts.default_block_if(mc,
+                                                                          rds)
 
 
 # --- the port's own invariants at the JAX package's gates ----------------
@@ -170,7 +170,7 @@ def test_shard0_reset_and_relock(sharded, contiguous):
 
 def test_reset_shard0_state_is_fresh():
     """Rows of shard 0 take the fresh state, the others keep theirs."""
-    fresh = prx.init_state(MC, (3,))
+    fresh = prx.init_state(PMC, (3,))
     walked = prx.map_state(lambda a: a + 1.0, fresh)
     got = pts._reset_first(walked, fresh, torch.tensor([True, False, True]))
     for g, f, w in zip(*map(_leaves, (got, fresh, walked))):
@@ -243,8 +243,8 @@ def station_u8():
 
 @pytest.mark.parametrize("chunk_blocks", [1, 3, 64])
 def test_iter_run_concat_equals_run(station_u8, chunk_blocks):
-    a = prx.Receiver(0, stereo=True, with_rds=True)
-    b = prx.Receiver(0, stereo=True, with_rds=True)
+    a = prx.Receiver(0, stereo=True, with_rds=True, device="cpu")
+    b = prx.Receiver(0, stereo=True, with_rds=True, device="cpu")
     whole = a.run(station_u8, block_size=BLOCK_RAW)
     chunks = list(b.iter_run(station_u8, block_size=BLOCK_RAW,
                              chunk_blocks=chunk_blocks))
@@ -259,8 +259,8 @@ def test_iter_run_concat_equals_run(station_u8, chunk_blocks):
 
 def test_iter_run_batched_channels(station_u8):
     iq2 = np.stack([station_u8, station_u8[::-1].copy()])
-    a = prx.Receiver(0, stereo=True, batch_shape=(2,))
-    b = prx.Receiver(0, stereo=True, batch_shape=(2,))
+    a = prx.Receiver(0, stereo=True, batch_shape=(2,), device="cpu")
+    b = prx.Receiver(0, stereo=True, batch_shape=(2,), device="cpu")
     whole = a.run(iq2, block_size=BLOCK_RAW)
     got = np.concatenate([c.mono for c in b.iter_run(
         iq2, block_size=BLOCK_RAW, chunk_blocks=2)], axis=0)
@@ -273,8 +273,8 @@ def test_run_blocks_matches_jax_scan(station_u8):
                        station_u8[BLOCK_RAW:4 * BLOCK_RAW]])
     blocks = np.ascontiguousarray(
         np.moveaxis(blocks.reshape(2, 3, BLOCK_RAW), 1, 0))
-    po, ps = prx.run_blocks(torch.from_numpy(blocks), prx.design_coeffs(MC),
-                            prx.init_state(MC, (2,)), MC, True, True)
+    po, ps = prx.run_blocks(torch.from_numpy(blocks), prx.design_coeffs(PMC),
+                            prx.init_state(PMC, (2,)), PMC, True, True)
     jo, js = jrx.run_blocks_scan(jnp.asarray(blocks), jrx.design_coeffs(MC),
                                  jrx.init_state(MC, (2,)), 0, True, True)
     for arm in ARMS:
@@ -292,12 +292,12 @@ def test_channel_chunked_matches_direct_and_jax(station_u8):
                             13 * r) for r in range(c)]) for b in range(2)]
     kw = dict(stereo=True, with_rds=True)
     _, warm = prx.process_block(torch.from_numpy(iq[0]),
-                                prx.design_coeffs(MC),
-                                prx.init_state(MC, (c,)), MC, **kw)
+                                prx.design_coeffs(PMC),
+                                prx.init_state(PMC, (c,)), PMC, **kw)
     o1, s1 = prx.process_block(torch.from_numpy(iq[1]),
-                               prx.design_coeffs(MC), warm, MC, **kw)
+                               prx.design_coeffs(PMC), warm, PMC, **kw)
     o2, s2 = prx.process_block_channel_chunked(
-        torch.from_numpy(iq[1]), prx.design_coeffs(MC), warm, MC,
+        torch.from_numpy(iq[1]), prx.design_coeffs(PMC), warm, PMC,
         channel_chunk=3, **kw)
     for arm in ARMS:
         assert_close(getattr(o2, arm), getattr(o1, arm), 1e-4, arm)
@@ -320,10 +320,10 @@ def test_channel_chunked_falls_through(station_u8):
     """A batch that is not a whole number (> 1) of chunks takes the direct
     path: identical results."""
     iq = torch.from_numpy(np.stack([station_u8[:BLOCK_RAW]] * 5))
-    st = prx.init_state(MC, (5,))
-    coeffs = prx.design_coeffs(MC)
-    o1, _ = prx.process_block(iq, coeffs, st, MC, stereo=True)
-    o2, _ = prx.process_block_channel_chunked(iq, coeffs, st, MC,
+    st = prx.init_state(PMC, (5,))
+    coeffs = prx.design_coeffs(PMC)
+    o1, _ = prx.process_block(iq, coeffs, st, PMC, stereo=True)
+    o2, _ = prx.process_block_channel_chunked(iq, coeffs, st, PMC,
                                               stereo=True, channel_chunk=3)
     np.testing.assert_array_equal(np_of(o1.left), np_of(o2.left))
 
@@ -359,8 +359,8 @@ def test_channel_sharded_matches_serial_and_jax(channels, devices):
     outs, state = pch.gather_channels(shards)
     assert outs.left.shape[:2] == (4, 8) and state.rf_i.shape[0] == 8
     for c in (0, 3, 7):
-        ref = prx.Receiver(0, stereo=True).run(channels[c],
-                                               block_size=BLOCK_RAW)
+        ref = prx.Receiver(0, stereo=True, device="cpu").run(
+            channels[c], block_size=BLOCK_RAW)
         assert_close(outs.left[:, c], ref.left, 1e-4, f"channel {c}")
     jo, _ = jch.channel_sharded_run(channels, _jmesh((8,), ("d",)), 0,
                                     stereo=True, block_size=BLOCK_RAW,

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (BS, MC, assert_close, capture, compare_block,
+from torch_parity import (BS, MC, PMC, assert_close, capture, compare_block,
                           np_of)  # noqa: F401
 
 import sdr_tpu
@@ -55,22 +55,22 @@ def test_receive_keeps_a_short_tail(station):
     final smaller block, not dropped (mono only: no PLL, fast)."""
     n = BS + 19_200
     out = sdr_tpu_torch.receive(station.iq_u8[:n], mode=0, stereo=False,
-                                rds=False)
+                                rds=False, device="cpu")
     assert out.left is None and out.rds_info_words.shape == (0, 16)
     assert out.mono.shape == (n // 2 // 50,)
     with pytest.raises(ValueError):
-        sdr_tpu_torch.receive(station.iq_u8[:1000], mode=0)
+        sdr_tpu_torch.receive(station.iq_u8[:1000], mode=0, device="cpu")
 
 
 def test_coeffs_from_jax_equal_design():
     got = convert.coeffs_from_numpy(jrx.design_coeffs(MC))
-    want = prx.design_coeffs(MC)
+    want = prx.design_coeffs(PMC)
     for f in want._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 def test_state_layout_is_the_checkpoint_layout():
-    ps = prx.init_state(MC, (2,))
+    ps = prx.init_state(PMC, (2,))
     flat = convert.state_to_numpy(ps)
     jflat = jckpt._flatten_with_paths(jrx.init_state(MC, (2,)))
     assert list(flat) == list(jflat)
@@ -92,17 +92,17 @@ def _jax_state(flat):
 
 def test_state_resumes_across_packages(capture):
     """Block 1 in one package, block 2 in the other, both ways."""
-    pc, jc = prx.design_coeffs(MC), jrx.design_coeffs(MC)
+    pc, jc = prx.design_coeffs(PMC), jrx.design_coeffs(MC)
     b1 = capture[:BS]
     b2 = capture[BS:2 * BS]
-    _, ps = prx.process_block(torch.from_numpy(b1), pc, prx.init_state(MC),
-                              MC, True, True)
+    _, ps = prx.process_block(torch.from_numpy(b1), pc, prx.init_state(PMC),
+                              PMC, True, True)
     _, js = jrx.process_block(jnp.asarray(b1), jc, jrx.init_state(MC), MC,
                               True, True)
     # JAX state -> port block 2 == JAX block 2
     ps_from_j = convert.state_from_numpy(jckpt._flatten_with_paths(js),
                                          expect_input_dtype="uint8")
-    po, ps2 = prx.process_block(torch.from_numpy(b2), pc, ps_from_j, MC,
+    po, ps2 = prx.process_block(torch.from_numpy(b2), pc, ps_from_j, PMC,
                                 True, True)
     jo, js2 = jrx.process_block(jnp.asarray(b2), jc, js, MC, True, True)
     compare_block(po, jo, ps2, js2)
@@ -110,13 +110,13 @@ def test_state_resumes_across_packages(capture):
     js_from_p = _jax_state(convert.state_to_numpy(ps))
     jo, js2 = jrx.process_block(jnp.asarray(b2), jc, js_from_p, MC, True,
                                 True)
-    po, ps2 = prx.process_block(torch.from_numpy(b2), pc, ps, MC, True,
+    po, ps2 = prx.process_block(torch.from_numpy(b2), pc, ps, PMC, True,
                                 True)
     compare_block(po, jo, ps2, js2)
 
 
 def test_u8_resume_rejects_float_state():
-    flat = convert.state_to_numpy(prx.init_state(MC))
+    flat = convert.state_to_numpy(prx.init_state(PMC))
     flat["rf_i"] = flat["rf_i"] + np.float32(0.3 / 128)
     with pytest.raises(ValueError):
         convert.state_from_numpy(flat, expect_input_dtype="uint8")

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (BS, MC, SHORT, TPU_SELECTORS,
+from torch_parity import (BS, MC, PMC, SHORT, TPU_SELECTORS,
                           assert_close, capture, mode0_batch, np_of,
                           run_both)  # noqa: F401
 
@@ -70,15 +70,15 @@ def test_process_block_goes_through_kernel_wrappers(monkeypatch, c, kernel):
     batch = (c,) if c > 1 else ()
     iq = torch.full(batch + (SHORT,), 128, dtype=torch.uint8)
     iq[..., ::7] = 200
-    out, _ = prx.process_block(iq, prx.design_coeffs(MC),
-                               prx.init_state(MC, batch), MC, True, True)
+    out, _ = prx.process_block(iq, prx.design_coeffs(PMC),
+                               prx.init_state(PMC, batch), PMC, True, True)
     assert calls == ["fir_frontend_u8", kernel]
     assert out.left.shape == batch + (SHORT // 100,)
 
 
 def test_init_state_matches_jax():
     for batch in ((), (3,)):
-        ps, js = prx.init_state(MC, batch), jrx.init_state(MC, batch)
+        ps, js = prx.init_state(PMC, batch), jrx.init_state(MC, batch)
         for name in ps._fields:
             a, b = getattr(ps, name), getattr(js, name)
             for x, y in (zip(a, b) if hasattr(a, "_fields") else [(a, b)]):
@@ -88,9 +88,9 @@ def test_init_state_matches_jax():
 class TestReceiver:
     def test_run_equals_process_loop(self, capture):
         iq = capture[:3 * SHORT]
-        r1 = prx.Receiver(0, stereo=True, with_rds=True)
+        r1 = prx.Receiver(0, stereo=True, with_rds=True, device="cpu")
         outs = r1.run(iq, block_size=SHORT)
-        r2 = prx.Receiver(0, stereo=True, with_rds=True)
+        r2 = prx.Receiver(0, stereo=True, with_rds=True, device="cpu")
         for b in range(3):
             o = r2.process(iq[b * SHORT:(b + 1) * SHORT])
             for f in o._fields:
@@ -102,21 +102,22 @@ class TestReceiver:
         """A (C, T) recording runs as (n_blocks, C, ...) outputs, and each
         channel equals its own single-channel run."""
         iq = mode0_batch(capture, 2, 2 * SHORT)
-        rb = prx.Receiver(0, stereo=True, with_rds=True, batch_shape=(2,))
+        rb = prx.Receiver(0, stereo=True, with_rds=True, batch_shape=(2,),
+                          device="cpu")
         outs = rb.run(iq, block_size=SHORT)
         assert outs.left.shape == (2, 2, SHORT // 100)
-        r1 = prx.Receiver(0, stereo=True, with_rds=True)
+        r1 = prx.Receiver(0, stereo=True, with_rds=True, device="cpu")
         one = r1.run(iq[1], block_size=SHORT)
         assert_close(outs.left[:, 1], one.left, 1e-5)
         assert_close(outs.rds_symbols[:, 1], one.rds_symbols, 1e-5)
 
     def test_run_rejects_short_capture(self):
-        r = prx.Receiver(0)
+        r = prx.Receiver(0, device="cpu")
         with pytest.raises(ValueError):
             r.run(np.zeros(100, np.uint8))
 
     def test_receiver_turns_tf32_off(self):
         torch.backends.cuda.matmul.allow_tf32 = True
-        prx.Receiver(0)
+        prx.Receiver(0, device="cpu")
         assert not torch.backends.cuda.matmul.allow_tf32
         assert not torch.backends.cudnn.allow_tf32

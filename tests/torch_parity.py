@@ -13,6 +13,7 @@ import torch
 from sdr_tpu import config as cfg
 from sdr_tpu.models import receiver as jrx
 from sdr_tpu.utils import synth
+from sdr_tpu_torch import config as pcfg
 from sdr_tpu_torch.models import receiver as prx
 
 # tier-1 runs several pytest workers on one host: one thread each
@@ -52,7 +53,7 @@ def pll_params():
     """Mode 0's (pilot, RDS carrier) PLL parameters: the JAX package's and
     the port's."""
     jp = (jrx.pilot_pll_params(MC), jrx.rds_pll_params(MC))
-    return jp, (prx.pilot_pll_params(MC), prx.rds_pll_params(MC))
+    return jp, (prx.pilot_pll_params(PMC), prx.rds_pll_params(PMC))
 
 
 # --- receiver parity (mode 0, raw u8) ---------------------------------
@@ -60,7 +61,18 @@ def pll_params():
 FM_ATOL = 2e-4
 PLL_ARM_ATOL = 5e-3
 
-MC = cfg.get_mode_config(0)
+
+def mode_configs(mode: int = 0, **custom) -> tuple:
+    """One mode in both packages: (the JAX package's ``ModeConfig``, the
+    port's), of mode number ``mode`` or, given keyword arguments, each
+    package's ``custom_mode(**custom)``.  The port is never handed the
+    JAX package's config."""
+    if custom:
+        return cfg.custom_mode(**custom), pcfg.custom_mode(**custom)
+    return cfg.get_mode_config(mode), pcfg.get_mode_config(mode)
+
+
+MC, PMC = mode_configs(0)
 BS = MC.default_block_size(True)          # 115,200 bytes = 5,760 IF samples
 SHORT = 19_200                            # 960 IF samples, one RDS period
 
@@ -92,9 +104,10 @@ def compare_block(po, jo, ps, js):
 
 
 def run_port(iq, n_blocks, block, stereo, with_rds, psel=None, batch=(),
-             mc=MC) -> list:
+             mc=PMC) -> list:
     """Chain ``n_blocks`` blocks of ``iq`` through the port's
-    ``process_block``; returns [(outputs, state)] per block."""
+    ``process_block`` (``mc``: the port's config); returns [(outputs,
+    state)] per block."""
     pc, ps = prx.design_coeffs(mc), prx.init_state(mc, batch)
     res = []
     for b in range(n_blocks):
@@ -106,15 +119,17 @@ def run_port(iq, n_blocks, block, stereo, with_rds, psel=None, batch=(),
 
 
 def run_both(iq, n_blocks, block, stereo, with_rds, jsel, psel,
-             batch=(), mc=MC, port=None):
+             batch=(), mcs=(MC, PMC), port=None):
     """Chain ``n_blocks`` blocks of ``iq`` through both packages'
-    ``process_block`` (mode 0 unless ``mc`` says otherwise) and compare
-    every block.  ``jsel`` are the JAX package's keyword arguments (its
-    kernel selectors among them); the port has one path, so ``psel`` holds
-    only ``rds_debug_q``/``fused_mixer``.  ``port`` reuses a
+    ``process_block`` (mode 0 unless ``mcs``, a :func:`mode_configs` pair,
+    says otherwise) and compare every block.  ``jsel`` are the JAX
+    package's keyword arguments (its kernel selectors among them); the
+    port has one path, so ``psel`` holds only
+    ``rds_debug_q``/``fused_mixer``.  ``port`` reuses a
     :func:`run_port` result of the same blocks."""
+    mc, pmc = mcs
     port = port or run_port(iq, n_blocks, block, stereo, with_rds, psel,
-                            batch, mc)
+                            batch, pmc)
     jc, js = jrx.design_coeffs(mc), jrx.init_state(mc, batch)
     for b, (po, ps) in enumerate(port):
         blk = iq[..., b * block:(b + 1) * block]
