@@ -16,10 +16,14 @@ Phases, one line of output each (any failure raises and exits non-zero):
    ragged lane and step counts), the chain floor against K2's recurrence,
    K5 ``fir_decim_f32`` (the receiver's float front-end
    at C=1 and C=512, the channelizer's FIR at C=2 and C=64 with D=4 and
-   D=8, a 3-block chain), K4 ``fir_decim_i8`` (C=1, C=512, a short
-   block), K6 ``halo_shift_right`` (S=8 shards on one card with C=1 and
-   C=4 rows at mode 0's RDS halo, an odd halo, a 2 x 4 channel x time
-   grid; bit-equal);
+   D=8, a block shorter than K-1, a 3-block chain on the kernel's own
+   states; states bit-equal to ``tail()``), K4 ``fir_decim_i8`` (C=1,
+   C=512, a short block), K6 ``halo_shift_right`` bit-equal: its
+   row-block entry (S=8 shards as row blocks of one tensor with C=1 and
+   C=4 rows at mode 0's RDS halo, a 2 x 4 grid) and its table entry (the
+   tensor at an odd halo, a 2 x 4 grid handed over as views of one
+   buffer, S=8 separate buffers with C=1 and C=4 rows, an odd halo, a
+   2 x 4 channel x time grid);
 3. the paths, each with the launch counts set to 0 just before it and
    read just after: (a) ``sdr_tpu_torch.receive`` on a synthesized 1 s
    mode-0 stereo+RDS capture, then a 512-channel ``Receiver`` for 4 blocks
@@ -28,7 +32,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
    ``--wideband`` on a synthesized 1 s 9.6 MS/s capture of two stations
    (K5, K2); (c) the CLI on the single-station capture of (a) (K1, K2);
    (d) ``time_sharded_receive`` of a synthesized 4 s capture over 8 time
-   shards on one card (K6, K5, K2), held to the JAX package's gates
+   shards on one card (K6 through its row-block entry, K5, K2), held to
+   the JAX package's gates
    against a contiguous ``Receiver.run`` on the card, then its chunked
    variant (bit-equal), a ``channel_sharded_run`` of 8 channels over two
    shards of the card, and, with two or more cards, the same time-sharded
@@ -38,8 +43,9 @@ Phases, one line of output each (any failure raises and exits non-zero):
    wideband block (channelizer + receiver) at C=2 and C=64, each kernel
    against its plain version, its bound and, where one PyTorch call
    computes the same function, that call (K5: ``conv1d`` at stride D; K6:
-   one ``copy_``); the PLL chain floor and K2/K3 at 2, 16 and 1,024
-   lanes; and a 60 s capture time-sharded at S = 1, 2, 4, 8 on the card
+   one ``copy_``), K5 and K6 also as their kernels' device time under
+   ``torch.profiler`` (K6 with L2 flushed before each launch); the PLL
+   chain floor and K2/K3 at 2, 16 and 1,024 lanes; and a 60 s capture time-sharded at S = 1, 2, 4, 8 on the card
    against its contiguous run (host clock).
 
 A kernel's bound is the larger of its bytes over 3.35 TB/s and its fp32
@@ -154,6 +160,27 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, match: str, before=None) -> float:
+    """Mean device time per call of the kernels whose name holds ``match``,
+    from ``torch.profiler``'s device events over ``reps`` calls of ``fn``
+    (each after ``before()``, when given, outside the match)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA and match in e.name
+               ) / reps / 1e3
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -368,6 +395,8 @@ def check_k5(h_rf: torch.Tensor, rng) -> dict:
             worst = max(worst, err)
             cases[f"channelizer C={c} D={d}"] = (x, ch.coeffs, st, d)
     x, h, st, d = cases["channelizer C=2 D=4"]
+    worst = max(worst, _k5_pair(x[..., :4 * 13], h, st, d,
+                                "short block N=52 < K-1"))
     sk = sp = st
     for b in range(3):
         blk = x[..., b * 4 * 5760:(b + 1) * 4 * 5760]
@@ -379,8 +408,9 @@ def check_k5(h_rf: torch.Tensor, rng) -> dict:
                                  "state mismatch")
         worst = max(worst, err)
     print(f"K5 fir_decim_f32 vs plain: front-end C=1, C=512 (step 2); "
-          f"channelizer C=2, C=64 x D=4, D=8; 3-block chain: max abs err "
-          f"{worst:.3g} (atol {K1_ATOL}), states equal")
+          f"channelizer C=2, C=64 x D=4, D=8; a block shorter than K-1; "
+          f"3-block chain on the kernel's states: max abs err {worst:.3g} "
+          f"(atol {K1_ATOL}), states equal")
     return {"max_abs_err": worst, "cases": cases}
 
 
@@ -425,21 +455,58 @@ def _halo_rows(rng, grid: tuple[int, int], c: int, halo: int):
     return rows
 
 
+def _ext(rng, t: int, s: int, c: int, halo: int) -> torch.Tensor:
+    """A time_sharded_receive-style buffer on cuda:0: cells (b, k) of a
+    t x s grid, b-major, each c rows of [halo | segment], random segments,
+    NaN halo slots."""
+    buf = torch.full((t * s * c, 2 * halo), float("nan"), device="cuda")
+    buf[:, halo:] = _f32_case(rng, (t * s * c, halo))
+    return buf
+
+
 def check_k6(rng) -> dict:
-    """K6 against its plain version, bit for bit: S=8 shards on one card
-    with C=1 and C=4 rows at mode 0's RDS halo, an odd halo (the scalar
-    path), a 2 x 4 channel x time grid."""
+    """K6 against its plain version, bit for bit.  The row-block entry: a
+    (T, S, rows, L) tensor of S=8 shards with C=1 and C=4 rows at mode 0's
+    RDS halo, and a 2 x 4 grid (bulk copies).  The table entry: the same
+    tensor at an odd halo (no 16-byte multiple), a 2 x 4 grid handed over
+    as views of one buffer, S=8 separate buffers with C=1 and C=4 rows, an
+    odd halo, a 2 x 4 channel x time grid."""
     mc = cfg.get_mode_config(MODE)
     halo = 2 * default_block_if(mc, True) * 2 * mc.rf_decim    # 230,400
+    k6 = khalo.halo_shift_right
+    rows_before = k6.row_block_launches
     cases = {}
-    for name, grid, c, n in (("S=8 C=1", (1, SHARDS), 1, halo),
-                             ("S=8 C=4", (1, SHARDS), 4, halo),
-                             ("S=8 odd", (1, SHARDS), 2, 1_001),
-                             ("2x4 grid", (2, 4), 2, halo)):
+    for name, t, c, n in (("rows S=8 C=1", 1, 1, halo),
+                          ("rows S=8 C=4", 1, 4, halo),
+                          ("rows 2x4 C=2", 2, 2, halo),
+                          ("table S=8 odd tensor", 1, 2, 1_001),
+                          ("table 2x4 views", 2, 2, halo)):
+        s = SHARDS // t
+        ext = _ext(rng, t, s, c, n)
+        views = lambda e: [[e[(b * s + k) * c:(b * s + k + 1) * c]
+                            for k in range(s)] for b in range(t)]
+        want = ext.clone()
+        khalo.halo_fill_plain(views(want), n)
+        arg = ext.view(t, s, c, 2 * n)
+        if name.endswith("views"):
+            k6(views(ext), n)
+        else:
+            k6(arg, n)
+        torch.cuda.synchronize()
+        if not torch.equal(ext, want):
+            raise AssertionError(f"K6 {name}: differs from its plain version")
+        cases[name] = (ext, arg, want, n)
+    if k6.row_block_launches - rows_before != 3:
+        raise AssertionError("K6: the row-block cases did not take the "
+                             "row-block entry, or a table case did")
+    for name, grid, c, n in (("table S=8 C=1", (1, SHARDS), 1, halo),
+                             ("table S=8 C=4", (1, SHARDS), 4, halo),
+                             ("table S=8 odd", (1, SHARDS), 2, 1_001),
+                             ("table 2x4 grid", (2, 4), 2, halo)):
         rows = _halo_rows(rng, grid, c, n)
         want = [[b.clone() for b in row] for row in rows]
         khalo.halo_fill_plain(want, n)
-        khalo.halo_shift_right(rows, n)
+        k6(rows, n)
         torch.cuda.synchronize()
         if not all(torch.equal(b, w) for row, ref in zip(rows, want)
                    for b, w in zip(row, ref)):
@@ -675,10 +742,15 @@ def phase_time_sharded(rng) -> dict:
     mesh = Mesh(["cuda:0"] * SHARDS, ("time",))
 
     _reset_counts()
+    khalo.halo_shift_right.row_block_launches = 0
     out = time_sharded_receive(iq, mesh, MODE, stereo=True, with_rds=True)
     launches = _read_counts("time-sharded path", ("halo_shift_right",
                                                   "fir_decim_f32",
                                                   "pll_angles"))
+    row_blocks = khalo.halo_shift_right.row_block_launches
+    if row_blocks < 1:
+        raise AssertionError("time-sharded path: K6 never took its "
+                             "row-block entry")
     ref = rx.Receiver(MODE, stereo=True, with_rds=True,
                       device="cuda").run(iq, block_size=block_raw)
     gates = _sharded_gates("time-sharded", out, ref)
@@ -702,7 +774,7 @@ def phase_time_sharded(rng) -> dict:
           f"cuda:0 vs contiguous on the card: {gates}; separation L "
           f"{sep_l:.1f} dB, R {sep_r:.1f} dB; RDS {len(words)} frames, all "
           f"info words transmitted ({n_groups} groups sent); launches "
-          f"{launches}")
+          f"{launches}, K6 through the row-block entry {row_blocks}")
 
     chunks = list(time_sharded_receive_chunked(iq, mesh, MODE, stereo=True,
                                                with_rds=True, chunk_blocks=7))
@@ -963,35 +1035,49 @@ def phase_timing(smi: str, k1: dict, pll: dict, k4: dict, k5: dict,
     # K5 at every case; the JSON line keeps the last: the channelizer at
     # C=64, D=8
     for name, (x, hk, st, d) in k5["cases"].items():
-        kms = cuda_ms(lambda: fir_decim.fir_block_decim(x, hk, st, d), 20)
+        k5_call = lambda: fir_decim.fir_block_decim(x, hk, st, d)
+        kms = cuda_ms(k5_call, 20)
+        dms = device_ms(k5_call, 10, "fir_f32")
         pms = cuda_ms(lambda: fir_decim.fir_block_decim_plain(x, hk, st, d),
                       10)
         lib_ms, lib_err = _conv1d_ms(x, hk, st, d)
         work = _fir_work(x.numel(), 4, x.numel() // d, hk.shape[0],
                          st.numel())
         bound, _, bkind, _ = _bound(*work)
-        print(f"timing [{smi}]: K5 fir_decim_f32 {name}: kernel {kms:.4f} "
-              f"ms, plain {pms:.4f} ms, conv1d {lib_ms:.4f} ms (max abs "
-              f"diff from K5 {lib_err:.3g}); bound {bound:.4f} ms "
-              f"({bkind}), {bound / kms:.1%} of it")
+        print(f"timing [{smi}]: K5 fir_decim_f32 {name}: call {kms:.4f} ms "
+              f"(kernel alone {dms:.4f} ms), plain {pms:.4f} ms, conv1d "
+              f"{lib_ms:.4f} ms (max abs diff from K5 {lib_err:.3g}); bound "
+              f"{bound:.4f} ms ({bkind}), {bound / kms:.1%} of it; "
+              f"{'no slower than' if kms <= lib_ms else 'SLOWER than'} "
+              "conv1d")
     record("fir_decim_f32", kms, pms, *work, library_ms=lib_ms)
 
     _time_wideband(smi, 2, WIDE_FS, WIDE_OFFSETS, rng, 10)
     _time_wideband(smi, 64, 2 * WIDE_FS,
                    [(k - 32) * 200e3 for k in range(64)], rng, 5)
-    rows, plain, halo = k6["cases"]["S=8 C=1"]
-    kms = cuda_ms(lambda: khalo.halo_shift_right(rows, halo), 50)
+    # K6 as time_sharded_receive calls it on one card: the row-block entry
+    # over S=8 shards of one buffer; beside it the table entry over S=8
+    # separate buffers, the plain version, and one copy_ of the tails into
+    # the prefixes (shard 0's zero fill would be a second call)
+    ext, arg, _, halo = k6["cases"]["rows S=8 C=1"]
+    rows, plain, _ = k6["cases"]["table S=8 C=1"]
+    s, c = SHARDS, 1
+    kms = cuda_ms(lambda: khalo.halo_shift_right(arg, halo), 50)
+    tms = cuda_ms(lambda: khalo.halo_shift_right(rows, halo), 50)
     pms = cuda_ms(lambda: khalo.halo_fill_plain(plain, halo), 50)
-    # the library yardstick: the S shards as rows of one buffer, every
-    # prefix filled from the row above's tail by one copy_ (shard 0's zero
-    # fill would be a second call)
-    s, c = len(rows[0]), rows[0][0].shape[0]
-    big = torch.cat([b for b in rows[0]])
-    lib_ms = cuda_ms(lambda: big[c:, :halo].copy_(big[:-c, -halo:]), 50)
-    print(f"timing [{smi}]: K6 halo_shift_right S=8 C=1 halo {halo}: kernel "
-          f"{kms:.4f} ms, plain {pms:.4f} ms, one copy_ {lib_ms:.4f} ms")
-    record("halo_shift_right", kms, pms, 4 * halo * c * (2 * s - 1), 0.0,
-           library_ms=lib_ms)
+    lib_ms = cuda_ms(lambda: ext[c:, :halo].copy_(ext[:-c, -halo:]), 50)
+    flush = torch.empty(16 * 2 ** 20, device="cuda")      # 64 MB > L2
+    rb = khalo.row_blocks_of(arg, halo)
+    cold = device_ms(lambda: khalo.launch_row_blocks(rb, 0), 20, "halo",
+                     before=lambda: flush.fill_(1.0))
+    nbytes = 4 * halo * c * (2 * s - 1)
+    print(f"timing [{smi}]: K6 halo_shift_right S=8 C=1 halo {halo}: "
+          f"row-block call {kms:.4f} ms, table call {tms:.4f} ms, plain "
+          f"{pms:.4f} ms, one copy_ {lib_ms:.4f} ms; "
+          f"{'no slower than' if kms <= lib_ms else 'SLOWER than'} copy_; "
+          f"kernel alone, L2 flushed before each launch: {cold:.4f} ms, "
+          f"against the bound {_bound(nbytes, 0.0)[0]:.4f} ms")
+    record("halo_shift_right", kms, pms, nbytes, 0.0, library_ms=lib_ms)
     _time_sharding(smi, rng)
     return out
 

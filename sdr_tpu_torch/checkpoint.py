@@ -55,15 +55,18 @@ def save(path: str, state: rx.ReceiverState, mode: int | cfg.Mode,
 
 
 def load(path: str, expect_input_dtype: str | None = None,
-         device: torch.device | str = "cpu"
+         device: torch.device | str = "cuda"
          ) -> tuple[rx.ReceiverState, dict[str, Any]]:
     """Read a checkpoint onto ``device``; returns (state, meta).  Host-side
-    arrays come back under ``meta["host_arrays"]``.
+    arrays come back under ``meta["host_arrays"]``.  ``device`` defaults to
+    the card, as the receiver does, and raises without one
+    (``receiver.resolve_device``) unless ``device="cpu"`` is passed.
 
     ``expect_input_dtype``: the dtype the resumed run will feed.  A
     checkpoint recorded with another ``input_dtype`` raises ValueError; one
     with no record gets a warning on stderr and, when the resumed run
     feeds u8, a direct check that the RF tail is 1/128-quantized."""
+    device = rx.resolve_device(device)
     if not os.path.exists(path) and os.path.exists(path + ".npz"):
         path = path + ".npz"
     with np.load(path, allow_pickle=False) as z:

@@ -9,31 +9,69 @@
 // in fp32.  This is the TPU kernels' function, not their block structure:
 // their polyphase VMEM tiling, halo views and bf16 hi/lo weight split are
 // TPU layout and are not carried over, so neither has K <= 128*D here.
+// Polyphase: with u = q*D + p, output j is sum_p sum_q hp[p, q] *
+// sp[p, j + q], hp[p, q] = h[K-1 - q*D - p] (zero past h[0]) and sp[p, m]
+// = xc[m*D + p]: r_rows = ceil(K/D) taps per phase.
 //
-// The state and the block are read in place (never concatenated): index g
-// of xc reads state[b, g] below K-1 and x[b, (g-K+1)*step] above.  A row b
-// of x starts at (b / arms) * outer_stride + (b % arms) * arm_stride, so
-// the receiver's interleaved float I/Q (..., 2N) is read as its (..., 2, N)
-// view with step 2 and no deinterleaved copy; a contiguous (B, N) stack has
-// arms 1 and step 1.
+// K5 (fir_f32_kernel), redesigned for the H100.  What bounds it: per
+// output it reads D input floats and does K multiply-adds.  At the
+// channelizer's D = 8 that is ~9.4 flops per input byte, below the ~20 at
+// which the CUDA cores' 67 TFLOP/s meet 3.35 TB/s of HBM, so the bound is
+// HBM.  The first design (one thread per output) issued two shared-memory
+// loads per multiply-add, one a broadcast tap, and ran at the shared-memory
+// load rate, 22% of that bound; staging was scalar global loads at the
+// element step, with no overlap but other resident blocks.  This design:
 //
-// What bounds it on this card: per output it reads D input samples and does
-// K multiply-adds.  At the channelizer's shape (D = 8, K = 151, f32) that
-// is ~9.4 flops per input byte, below the ~20 flops per HBM byte at which
-// the CUDA cores' fp32 rate meets the memory bandwidth, so the best this
-// kernel could do is stream its input at HBM rate; int8 input (K4) has 4x
-// the ratio and is compute bound.  This simple kernel is bound instead by
-// its shared-memory reads: two per multiply-add, one a broadcast tap.
+// * Register blocking.  A thread computes R = 8 consecutive outputs of one
+//   row.  Per phase it walks the taps 8 at a time (4 for the last when
+//   ceil(K/D) % 8 is 4 or less): two 16-byte broadcast loads of taps and
+//   two 16-byte loads of 8 new window samples feed 64 multiply-adds, the
+//   window's other 8 samples carried in registers from the step before:
+//   16 shared words (half of them broadcast taps) per 64 multiply-adds
+//   against the first design's 2 per multiply-add.  The phase rows are
+//   swizzled (word m at m ^ ((m >> 5 & 1) << 2)) so that the window loads
+//   of a quarter warp, 8 words apart per thread, hit all 32 banks.  The
+//   swizzle permutes aligned groups of 8 words, so a phase row holds its
+//   32*R + r_pad window rows rounded up to 8 (spw): otherwise the last,
+//   partial group of 4 would land past the row when bit 5 of its start is
+//   set.  Small shapes take R = 1 (scalar window loads), so that a C=1
+//   block still spreads over more than 132 blocks.
+// * Staging that overlaps compute.  Persistent blocks walk (row, tile)
+//   work items.  Warp 0 is the producer: one thread brings each item's
+//   input span into a ring of shared-memory stages with one cp.async.bulk
+//   (the span widened to 16-byte bounds), each stage under a full and an
+//   empty mbarrier.  Each compute warp owns 32*R outputs of one arm of the
+//   item and splits its part of the staged span by phase into its own
+//   buffer (the polyphase split is done reading shared memory, four loads
+//   in flight a lane, not in global loads), releases the stage, and
+//   computes from its buffer while the producer loads the next item.  The
+//   ring depth (1-3) is the plan's: the kernel is bound by issue and
+//   latency, not by HBM, and at the paths' large shapes one stage with
+//   more blocks resident (12-24 compute warps an SM) ran 16-22% faster
+//   than two stages with fewer (PERF.md).
+// * The interleaved front-end.  The receiver's float I/Q block is read as
+//   its (C, 2, N) view (element step 2): a span holds both arms
+//   interleaved and is staged once; its two compute warps split it
+//   together, each half of the rows of both arms (pairs of floats), and
+//   then each computes one arm.
+// * The state in the same launch: after their items, the blocks write the
+//   new state, the last K-1 samples of [state, x], into its own output
+//   (a block shorter than K-1 keeps part of the old state), so one call is
+//   one launch.
+// * The geometry (R, warps, tile, stages, shared bytes, grid) is a pure
+//   function of the shape, computed in Python (ops/fir_decim.py, plan) and
+//   passed in; the kernel checks only what would fault.  All of the SM's
+//   unified L1/shared memory goes to shared memory, so that the plan's
+//   blocks fit.
 //
-// The simple design: one thread block per (row, tile of outputs), one
-// thread per output.  The block stages its taps and its input span in
-// shared memory by polyphase: sp[p, m] = xc[j0*D + m*D + p] and
-// hp[p, q] = h[K-1 - q*D - p] (zero where that runs past h[0]).  Output jj
-// of the tile is then sum_p sum_q hp[p, q] * sp[p, jj + q]: for each tap,
-// the threads of a warp read consecutive words of one phase row, so the
-// reads have no bank conflicts at any D (reading xc at stride D would have
-// gcd(D, 32)-way conflicts).  The new state (the last K-1 samples of
-// [state, x]) is formed exactly by the wrapper (ops/fir_decim.py).
+// Summation order: each output sums by phase p = 0..D-1, then by tap q =
+// 0..r_rows-1 within the phase (the plain version sums another order:
+// within 1e-5).  The state is copied, so it is bit-equal to the plain
+// version's.
+//
+// K4 (fir_decim_i8_kernel) keeps the first design, on no path: one thread
+// block per (row, tile of outputs), one thread per output, span and taps
+// staged by polyphase in shared memory.
 //
 // The library is built with --fmad=false for the PLL kernels; the
 // multiply-adds here are explicit fmaf, which that flag leaves alone.
@@ -42,36 +80,370 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
+
+// --- K5 ------------------------------------------------------------------------
+
+constexpr int kT = 4;            // taps per phase row: a multiple of 4
+constexpr int kBarBytes = 64;    // full and empty mbarriers of <= 4 stages
+constexpr int kMaxWarps = 4;     // compute warps per block
+constexpr int kMaxShared = 232448;
+constexpr int kMaxDevices = 64;
+
+// Where a launch's data lies and how it is cut (ops/fir_decim.py: the
+// spans and the plan).  A span is one staged row of x: `lanes` arms
+// interleaved (1, or 2 for the receiver's I/Q), span s at
+// x + (s / spo) * outer_stride + (s % spo) * arm_stride; output and state
+// row s * lanes + a.
+struct Fir {
+  const float* x;
+  const float* state;
+  float* y;
+  float* new_state;
+  long long outer_stride, arm_stride;
+  int spans, lanes, spo, n, k, decim, n_out;
+  int tile, n_tiles, r_pad, spw, raw, stages;
+};
+
+__device__ __forceinline__ int swz(int m) { return m ^ (((m >> 5) & 1) << 2); }
+
+__device__ __forceinline__ const float* span_row(const Fir& f, int span) {
+  return f.x + static_cast<long long>(span / f.spo) * f.outer_stride +
+         static_cast<long long>(span % f.spo) * f.arm_stride;
+}
+
+// The staged part of a span for the item at output j0: xc indices [j0*D,
+// g_end), g_end = min((j0 + tile + r_pad) * D, n + K-1), everything the
+// item's warps split (up to r_pad outputs past the tile, so that only a
+// row's first and last items need the slow split); its x part [i_lo,
+// g_end - (K-1)) widened to 16-byte bounds.  `off`: floats from `src` to
+// x index i_lo's first float.  The widening reads up to 12 bytes before
+// a span's first float and after its last, which may lie outside x's
+// storage.  That cannot fault: the bytes added share an aligned 16-byte
+// granule with a float of x, and no page boundary splits such a granule.
+// They are never used.  Inside PyTorch's caching allocator, which rounds
+// blocks up to 512 bytes, they also stay inside x's block; a memory
+// checker that tracks allocations may report them for a tensor whose
+// storage ends on no 16-byte bound.
+struct Stage {
+  const float* src;
+  uint32_t bytes;
+  int i_lo, off, g_end;
+};
+
+__device__ __forceinline__ Stage stage_of(const Fir& f, int span, int j0) {
+  const float* row = span_row(f, span);
+  const int km1 = f.k - 1;
+  const int i_lo = max(j0 * f.decim - km1, 0);
+  const int g_end = min((j0 + f.tile + f.r_pad) * f.decim, f.n + km1);
+  const uintptr_t first =
+      reinterpret_cast<uintptr_t>(row + static_cast<long long>(i_lo) * f.lanes);
+  const uintptr_t end = reinterpret_cast<uintptr_t>(
+      row + static_cast<long long>(g_end - km1) * f.lanes);
+  const uintptr_t a = first & ~static_cast<uintptr_t>(15);
+  const uintptr_t b = (end + 15) & ~static_cast<uintptr_t>(15);
+  return {reinterpret_cast<const float*>(a), static_cast<uint32_t>(b - a),
+          i_lo, static_cast<int>((first - a) / 4), g_end};
+}
+
+// The polyphase split of one warp's rows: sp_a[p * spw + swz(m)] =
+// xc_a[g0 + e] for e = m * D + p in [e_lo, e_hi), lanes 32 apart, for
+// ARMS arms: one (xs at its arm), or both interleaved arms of a span (xs
+// at arm 0), read as pairs.  Past the row's end: zeros; below K-1: the
+// old state rows old_a.
+template <int ARMS>
+__device__ __forceinline__ void split_rows(const Fir& f, const Stage& st,
+                                           const float* xs, const float* old0,
+                                           const float* old1, float* sp0,
+                                           float* sp1, int g0, int e_lo,
+                                           int e_hi, int lane) {
+  const int km1 = f.k - 1;
+  const int dp = 32 % f.decim, dm = 32 / f.decim;
+  int e = e_lo + lane;
+  int p = e % f.decim, m = e / f.decim;
+  if (g0 + e_lo >= km1 && g0 + e_hi <= st.g_end) {
+    // the common case: every element lies in the staged block.  Four
+    // elements a lane are loaded before any is stored, so that their
+    // shared-memory latencies overlap.
+    const float* src = xs + (g0 - km1 - st.i_lo) * f.lanes;
+    const bool pairs = (reinterpret_cast<uintptr_t>(src) & 7) == 0;
+    auto load = [&](int i) {
+      float2 v = make_float2(0.0f, 0.0f);
+      if (ARMS == 1) {
+        v.x = src[i * f.lanes];
+      } else if (pairs) {
+        v = *reinterpret_cast<const float2*>(src + 2 * i);
+      } else {
+        v.x = src[2 * i];
+        v.y = src[2 * i + 1];
+      }
+      return v;
+    };
+    auto store = [&](float2 v) {
+      const int at = p * f.spw + swz(m);
+      sp0[at] = v.x;
+      if (ARMS == 2) sp1[at] = v.y;
+      p += dp;
+      m += dm;
+      if (p >= f.decim) {
+        p -= f.decim;
+        ++m;
+      }
+    };
+    for (; e + 96 < e_hi; e += 128) {
+      const float2 v0 = load(e), v1 = load(e + 32), v2 = load(e + 64),
+                   v3 = load(e + 96);
+      store(v0);
+      store(v1);
+      store(v2);
+      store(v3);
+    }
+    for (; e < e_hi; e += 32) store(load(e));
+  } else {
+    // a row's first tile (the old state) or its last (zeros past it)
+    for (; e < e_hi; e += 32) {
+      const int g = g0 + e;
+      float v0 = 0.0f, v1 = 0.0f;
+      if (g < st.g_end) {
+        if (g < km1) {
+          v0 = old0[g];
+          if (ARMS == 2) v1 = old1[g];
+        } else {
+          const float* q = xs + (g - km1 - st.i_lo) * f.lanes;
+          v0 = q[0];
+          if (ARMS == 2) v1 = q[1];
+        }
+      }
+      const int at = p * f.spw + swz(m);
+      sp0[at] = v0;
+      if (ARMS == 2) sp1[at] = v1;
+      p += dp;
+      m += dm;
+      if (p >= f.decim) {
+        p -= f.decim;
+        ++m;
+      }
+    }
+  }
+}
+
+// The two compute warps of an interleaved span (arms 0 and 1; a plan with
+// lanes 2 has exactly these two).
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("bar.sync 1, 64;" ::: "memory");
+}
+
+// 8 window samples from phase row `srow`, rows b .. b+7 (b a multiple of
+// 8): two 16-byte loads.  In an aligned group of 8 the swizzle swaps the
+// two halves or not, by bit 5 of b.
+__device__ __forceinline__ void load8(const float* srow, int b, float* w) {
+  const int s = (b >> 3) & 4;
+  const float4 lo = *reinterpret_cast<const float4*>(srow + (b | s));
+  const float4 hi = *reinterpret_cast<const float4*>(srow + (b | (s ^ 4)));
+  w[0] = lo.x; w[1] = lo.y; w[2] = lo.z; w[3] = lo.w;
+  w[4] = hi.x; w[5] = hi.y; w[6] = hi.z; w[7] = hi.w;
+}
+
+__device__ __forceinline__ void load4(const float* p, float* w) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+}
+
+// acc[i] = sum_p sum_q hp[p, q] * sp[p, m0 + i + q], summed by phase, then
+// by tap.  R = 8: per phase, taps 8 at a time (two broadcast loads), and a
+// 16-sample window whose upper half carries over to the next 8 taps, so
+// each step loads 8 new samples for 64 multiply-adds; r_pad % 8 == 4 ends
+// with a half step.  R = 1 (small shapes): taps 4 at a time, scalar loads.
+template <int R>
+__device__ __forceinline__ void outputs(const float* sp, const float* hp,
+                                        int spw, int r_pad, int decim, int m0,
+                                        float (&acc)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.0f;
+  for (int p = 0; p < decim; ++p) {
+    const float* srow = sp + p * spw;
+    const float* hrow = hp + p * r_pad;
+    if (R == 8) {
+      float w[16], t[8];
+      load8(srow, m0, w);
+      int q0 = 0;
+#pragma unroll 2
+      for (; q0 + 8 <= r_pad; q0 += 8) {
+        load8(srow, m0 + q0 + 8, w + 8);
+        load4(hrow + q0, t);
+        load4(hrow + q0 + 4, t + 4);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+#pragma unroll
+          for (int i = 0; i < R; ++i) acc[i] = fmaf(t[q], w[q + i], acc[i]);
+        }
+#pragma unroll
+        for (int v = 0; v < 8; ++v) w[v] = w[v + 8];
+      }
+      if (q0 < r_pad) {  // the last 4 taps
+        const int b = m0 + q0 + 8;
+        load4(srow + (b | ((b >> 3) & 4)), w + 8);
+        load4(hrow + q0, t);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int i = 0; i < R; ++i) acc[i] = fmaf(t[q], w[q + i], acc[i]);
+        }
+      }
+    } else {
+      for (int q0 = 0; q0 < r_pad; q0 += kT) {
+        float t[kT], w[R + kT - 1];
+        load4(hrow + q0, t);
+#pragma unroll
+        for (int v = 0; v < R + kT - 1; ++v) w[v] = srow[swz(m0 + q0 + v)];
+#pragma unroll
+        for (int q = 0; q < kT; ++q) {
+#pragma unroll
+          for (int i = 0; i < R; ++i) acc[i] = fmaf(t[q], w[q + i], acc[i]);
+        }
+      }
+    }
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(32 * (1 + kMaxWarps))
+    fir_f32_kernel(const float* __restrict__ h, const Fir f) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + f.stages;
+  float* hp = reinterpret_cast<float*>(smem + kBarBytes);  // (D, r_pad)
+  float* ring = hp + f.decim * f.r_pad;                     // stages x raw
+  float* split = ring + f.stages * f.raw;                   // warps x D x spw
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x / 32 - 1;
+  const int km1 = f.k - 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < f.stages; ++s) {
+      bulk::bar_init(&full[s], 1);
+      bulk::bar_init(&empty[s], warps);
+    }
+    bulk::bar_init_fence();
+  }
+  for (int i = threadIdx.x; i < f.decim * f.r_pad; i += blockDim.x) {
+    const int t = km1 - (i % f.r_pad) * f.decim - i / f.r_pad;
+    hp[i] = t >= 0 ? h[t] : 0.0f;
+  }
+  __syncthreads();
+
+  const int items = f.spans * f.n_tiles;
+  if (warp == 0) {
+    // the producer: one thread keeps the ring full
+    if (lane == 0) {
+      int it = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+        const int s = it % f.stages;
+        if (it >= f.stages) bulk::bar_wait(&empty[s], (it / f.stages - 1) & 1);
+        const Stage st =
+            stage_of(f, item / f.n_tiles, (item % f.n_tiles) * f.tile);
+        bulk::bar_expect(&full[s], st.bytes);
+        bulk::load(ring + s * f.raw, st.src, st.bytes, &full[s]);
+      }
+    }
+  } else {
+    const int cw = warp - 1;
+    const int arm = cw % f.lanes;
+    const int chunk = cw / f.lanes;
+    float* sp = split + cw * f.decim * f.spw;
+    const int rows_m = 32 * R + f.r_pad;  // phase rows of this warp's split
+    int it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+      const int s = it % f.stages;
+      const int span = item / f.n_tiles;
+      const int j0 = (item % f.n_tiles) * f.tile;
+      const int j1 = min(j0 + f.tile, f.n_out);
+      const int jw = j0 + chunk * 32 * R;  // this warp's first output
+      const int row = span * f.lanes + arm;
+      bulk::bar_wait(&full[s], (it / f.stages) & 1);
+      if (jw < j1) {
+        // split: sp[p, m] = xc[(jw + m) * D + p], zero past the row's end
+        const Stage st = stage_of(f, span, j0);
+        const float* xs = ring + s * f.raw + st.off;
+        const float* old = f.state + static_cast<long long>(row) * km1;
+        const int total = rows_m * f.decim;
+        if (f.lanes == 1) {
+          split_rows<1>(f, st, xs, old, old, sp, sp, jw * f.decim, 0, total,
+                        lane);
+        } else {
+          // the pair splits both arms, each warp half of the rows: once
+          // the partner has finished reading its buffer
+          pair_sync();
+          float* sp0 = sp - arm * f.decim * f.spw;
+          split_rows<2>(f, st, xs, old - arm * km1, old + (1 - arm) * km1,
+                        sp0, sp0 + f.decim * f.spw, jw * f.decim,
+                        arm * (total / 2), arm ? total : total / 2, lane);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) bulk::bar_arrive(&empty[s]);
+      if (f.lanes == 2 && jw < j1) pair_sync();  // both halves written
+      if (jw < j1) {
+        float acc[R];
+        outputs<R>(sp, hp, f.spw, f.r_pad, f.decim, lane * R, acc);
+        const int m0 = lane * R;
+        float* yr = f.y + static_cast<long long>(row) * f.n_out;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const int j = jw + m0 + i;
+          if (j < j1) yr[j] = acc[i];
+        }
+      }
+      __syncwarp();  // every lane has read sp before the next split
+    }
+  }
+
+  // the new state: the last K-1 samples of [state, x], row by row
+  const int rows = f.spans * f.lanes;
+  const long long total = static_cast<long long>(rows) * km1;
+  const int keep = max(km1 - f.n, 0);  // old-state samples that stay
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int row = static_cast<int>(i / km1);
+    const int c = static_cast<int>(i % km1);
+    float v;
+    if (c < keep) {
+      v = f.state[static_cast<long long>(row) * km1 + f.n + c];
+    } else {
+      const int xi = f.n - km1 + c;  // >= 0 here
+      v = span_row(f, row / f.lanes)[static_cast<long long>(xi) * f.lanes +
+                                     row % f.lanes];
+    }
+    f.new_state[i] = v;
+  }
+}
+
+// --- K4 ------------------------------------------------------------------------
 
 constexpr int kMaxTile = 256;
 constexpr size_t kSharedBytes = 48 * 1024;
+constexpr float kI8Scale = 0.0078125f;  // 2^-7: int8 times it is exact
 
-__device__ __forceinline__ float load_scaled(float v, float) { return v; }
-
-// int8 times a power of two: exact in fp32
-__device__ __forceinline__ float load_scaled(int8_t v, float scale) {
-  return static_cast<float>(v) * scale;
-}
-
-template <typename T>
-__global__ void fir_decim_kernel(const T* __restrict__ x,
-                                 const T* __restrict__ state,
-                                 const float* __restrict__ h,
-                                 float* __restrict__ y, float scale, int arms,
-                                 long long outer_stride, long long arm_stride,
-                                 long long step, int n, int k, int decim,
-                                 int n_out, int n_tiles, int r_rows,
-                                 int rows) {
-  extern __shared__ float smem[];
-  float* hp = smem;                  // (decim, r_rows) taps by phase
+__global__ void fir_decim_i8_kernel(const int8_t* __restrict__ x,
+                                    const int8_t* __restrict__ state,
+                                    const float* __restrict__ h,
+                                    float* __restrict__ y, int arms,
+                                    long long outer_stride,
+                                    long long arm_stride, long long step,
+                                    int n, int k, int decim, int n_out,
+                                    int n_tiles, int r_rows, int rows) {
+  extern __shared__ float smem_i8[];
+  float* hp = smem_i8;               // (decim, r_rows) taps by phase
   float* sp = hp + decim * r_rows;   // (decim, rows) input span by phase
 
   const int b = blockIdx.x / n_tiles;
   const int j0 = (blockIdx.x % n_tiles) * blockDim.x;
   const int km1 = k - 1;
-  const T* xr = x + (b / arms) * outer_stride + (b % arms) * arm_stride;
-  const T* st = state + static_cast<size_t>(b) * km1;
+  const int8_t* xr = x + (b / arms) * outer_stride + (b % arms) * arm_stride;
+  const int8_t* st = state + static_cast<size_t>(b) * km1;
 
   for (int i = threadIdx.x; i < decim * r_rows; i += blockDim.x) {
     const int p = i / r_rows;
@@ -83,9 +455,10 @@ __global__ void fir_decim_kernel(const T* __restrict__ x,
     const int g = g0 + i;
     float v = 0.0f;
     if (g < km1) {
-      v = load_scaled(st[g], scale);
+      v = static_cast<float>(st[g]) * kI8Scale;
     } else if (g - km1 < n) {
-      v = load_scaled(xr[static_cast<long long>(g - km1) * step], scale);
+      v = static_cast<float>(xr[static_cast<long long>(g - km1) * step]) *
+          kI8Scale;
     }
     sp[(i % decim) * rows + i / decim] = v;
   }
@@ -102,55 +475,121 @@ __global__ void fir_decim_kernel(const T* __restrict__ x,
   y[static_cast<size_t>(b) * n_out + j] = acc;
 }
 
-size_t shared_bytes(int tile, int r_rows, int decim) {
+size_t shared_bytes_i8(int tile, int r_rows, int decim) {
   return sizeof(float) * static_cast<size_t>(decim) *
          (static_cast<size_t>(r_rows) + tile + r_rows - 1);
 }
 
-template <typename T>
-int launch(const T* x, const T* state, const float* h, float* y, float scale,
-           int batch, int arms, long long outer_stride, long long arm_stride,
-           long long step, int n, int k, int decim, void* stream) {
+}  // namespace
+
+// K5: x float rows as struct Fir describes them, state and new_state
+// (spans * lanes, k-1), h (k) -> y (spans * lanes, n/decim).  `geometry`:
+// 19 host integers, the CUDA device, spans, lanes, spans per outer row,
+// n, k, decim, the outer and arm strides of x, then the launch plan of
+// ops/fir_decim.py (r 8 or 1, warps, tile, n_tiles, r_pad, spw, raw,
+// stages, smem, grid).  Launches on `stream`, which must belong to the
+// device; returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for what it does not take).
+extern "C" int sdr_fir_decim_f32(const float* x, const float* state,
+                                 const float* h, float* y, float* new_state,
+                                 const long long* geometry, void* stream) {
+  const int device = static_cast<int>(geometry[0]);
+  const int spans = static_cast<int>(geometry[1]);
+  const int lanes = static_cast<int>(geometry[2]);
+  const int spans_per_outer = static_cast<int>(geometry[3]);
+  const int n = static_cast<int>(geometry[4]);
+  const int k = static_cast<int>(geometry[5]);
+  const int decim = static_cast<int>(geometry[6]);
+  const long long outer_stride = geometry[7], arm_stride = geometry[8];
+  const int r = static_cast<int>(geometry[9]);
+  const int warps = static_cast<int>(geometry[10]);
+  const int tile = static_cast<int>(geometry[11]);
+  const int n_tiles = static_cast<int>(geometry[12]);
+  const int r_pad = static_cast<int>(geometry[13]);
+  const int spw = static_cast<int>(geometry[14]);
+  const int raw = static_cast<int>(geometry[15]);
+  const int stages = static_cast<int>(geometry[16]);
+  const int smem = static_cast<int>(geometry[17]);
+  const int grid = static_cast<int>(geometry[18]);
+  if (spans <= 0 || lanes < 1 || lanes > 2 || spans_per_outer <= 0 ||
+      n <= 0 || k < 2 || decim <= 0 || n % decim != 0 ||
+      (r != 1 && r != 8) || warps < lanes || warps > kMaxWarps ||
+      warps % lanes != 0 || (lanes == 2 && warps != 2) ||
+      tile != 32 * r * (warps / lanes) ||
+      static_cast<long long>(n_tiles) * tile < n / decim ||
+      static_cast<long long>(spans) * n_tiles > INT_MAX || r_pad % kT != 0 ||
+      r_pad * decim < k || spw % 4 != 0 ||
+      spw < ((32 * r + r_pad + 7) & ~7) ||
+      raw % 4 != 0 || raw < (tile + r_pad) * decim * lanes + 8 ||
+      stages < 1 || 2 * stages * 8 > kBarBytes || smem > kMaxShared ||
+      grid <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long floats = 1LL * decim * r_pad + 1LL * stages * raw +
+                           1LL * warps * decim * spw;
+  const long long need = kBarBytes + 4 * floats;
+  if (smem < need) return static_cast<int>(cudaErrorInvalidValue);
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // above 48 KB of dynamic shared memory, and all of the SM's unified
+  // L1/shared memory as shared, so that the plan's blocks per SM fit: once
+  // per device and variant
+  static bool opened[kMaxDevices][2];
+  if (device >= 0 && device < kMaxDevices && !opened[device][r == 8]) {
+    auto* kernel = r == 8 ? fir_f32_kernel<8> : fir_f32_kernel<1>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    opened[device][r == 8] = err == cudaSuccess;
+  }
+  if (err == cudaSuccess) {
+    const Fir f{x,     state, y,     new_state,       outer_stride, arm_stride,
+                spans, lanes, spans_per_outer, n,    k,            decim,
+                n / decim, tile, n_tiles, r_pad, spw,          raw,
+                stages};
+    const dim3 block(32 * (1 + warps));
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (r == 8) {
+      fir_f32_kernel<8><<<grid, block, smem, st>>>(h, f);
+    } else {
+      fir_f32_kernel<1><<<grid, block, smem, st>>>(h, f);
+    }
+    err = cudaGetLastError();
+  }
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+// K4: x int8 (bias-flipped bytes) rows b at (b / arms) * outer_stride +
+// (b % arms) * arm_stride, element step `step`; state (batch, k-1) int8;
+// both scaled by 2^-7; h (k) f32 -> y (batch, n/decim) f32.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for shapes it
+// does not take).
+extern "C" int sdr_fir_decim_i8(const int8_t* x, const int8_t* state,
+                                const float* h, float* y, int batch, int arms,
+                                long long outer_stride, long long arm_stride,
+                                long long step, int n, int k, int decim,
+                                void* stream) {
   if (batch <= 0 || arms <= 0 || n <= 0 || k <= 0 || decim <= 0 ||
       n % decim != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_out = n / decim;
   const int r_rows = (k + decim - 1) / decim;
   int tile = kMaxTile;
-  while (tile > 32 && shared_bytes(tile, r_rows, decim) > kSharedBytes)
+  while (tile > 32 && shared_bytes_i8(tile, r_rows, decim) > kSharedBytes)
     tile /= 2;
-  const size_t smem = shared_bytes(tile, r_rows, decim);
+  const size_t smem = shared_bytes_i8(tile, r_rows, decim);
   const int n_tiles = (n_out + tile - 1) / tile;
   if (smem > kSharedBytes ||
       static_cast<long long>(batch) * n_tiles > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  fir_decim_kernel<T><<<batch * n_tiles, tile, smem,
+  fir_decim_i8_kernel<<<batch * n_tiles, tile, smem,
                         static_cast<cudaStream_t>(stream)>>>(
-      x, state, h, y, scale, arms, outer_stride, arm_stride, step, n, k,
-      decim, n_out, n_tiles, r_rows, tile + r_rows - 1);
+      x, state, h, y, arms, outer_stride, arm_stride, step, n, k, decim,
+      n_out, n_tiles, r_rows, tile + r_rows - 1);
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// K5: x f32 rows as described above, state (batch, k-1) f32, h (k) f32 ->
-// y (batch, n/decim) f32.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for shapes it does not take).
-extern "C" int sdr_fir_decim_f32(const float* x, const float* state,
-                                 const float* h, float* y, int batch,
-                                 int arms, long long outer_stride,
-                                 long long arm_stride, long long step, int n,
-                                 int k, int decim, void* stream) {
-  return launch<float>(x, state, h, y, 1.0f, batch, arms, outer_stride,
-                       arm_stride, step, n, k, decim, stream);
-}
-
-// K4: the same over int8 x and state (bias-flipped bytes), scaled by 2^-7.
-extern "C" int sdr_fir_decim_i8(const int8_t* x, const int8_t* state,
-                                const float* h, float* y, int batch, int arms,
-                                long long outer_stride, long long arm_stride,
-                                long long step, int n, int k, int decim,
-                                void* stream) {
-  return launch<int8_t>(x, state, h, y, 0.0078125f, batch, arms,
-                        outer_stride, arm_stride, step, n, k, decim, stream);
 }

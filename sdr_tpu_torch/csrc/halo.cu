@@ -8,30 +8,47 @@
 // halo prefix of shard k's buffer (zeros for shard 0), so no concatenation
 // follows: the receiver reads its warm-up blocks from that prefix.
 //
-// One launch serves every shard whose buffer lies on the launching card:
-// blockIdx.y is the shard (an entry of the table passed by value),
-// blockIdx.z the channel row within it, blockIdx.x strides over the
-// samples.  Shards that share a card are rows of one batch, so S shards on
-// one card, or a channel x time grid, is one launch; each time row has its
-// own shard 0, and the wrapper (parallel/halo.py) builds the table so.
+// Two entries, both K6:
+//
+// * sdr_halo_shift_rows, the row-block entry: the shards of one card as
+//   equally spaced row blocks of one buffer, as time_sharded_receive lays
+//   them out ((time rows x shards x channel rows, L), one allocation per
+//   card).  Every address is base + b * group_stride + k * shard_stride +
+//   r * row_stride, so the launch takes ten integers and no table: the
+//   whole exchange of a card, zero fill included, is one launch with no
+//   host work beyond the call.  It takes 16-byte multiples only.
+// * sdr_halo_shift, the table entry: any buffers, one (source, destination)
+//   pointer pair per shard passed by value (blockIdx.y the shard, blockIdx.z
+//   the channel row).  It serves left neighbours on another card (read
+//   through unified addressing with peer access, sdr_halo_enable_peer),
+//   buffers that are no row blocks of one tensor, and row blocks that are
+//   not 16-byte multiples.
 //
 // Direction: the kernel PULLS.  It runs on the destination's card and reads
-// the left neighbour's tail, local or on another card through unified
-// addressing with peer access enabled (sdr_halo_enable_peer).  Every write
-// is then local, the destination's own stream orders the halo before the
-// compute that reads it, and the zero fill of shard 0 rides in the same
-// launch.  The TPU kernel pushes; a peer read costs a round trip where a
-// posted NVLink write does not, but at these sizes (0.9 MB per row) enough
-// loads are in flight that the transfer is bound by bandwidth.  The wrapper
-// orders a remote tail with an event on the source's stream, and the
-// source's stream waits for this launch before it may reuse that memory.
+// the left neighbour's tail, so every write is local, the destination's own
+// stream orders the halo before the compute that reads it, and the zero
+// fill of shard 0 rides in the same launch.  The TPU kernel pushes; a peer
+// read costs a round trip where a posted NVLink write does not, but at
+// these sizes (0.9 MB per row) enough loads are in flight that the
+// transfer is bound by bandwidth.  The wrapper orders a remote tail with
+// an event on the source's stream, and the source's stream waits for this
+// launch before it may reuse that memory.
 //
 // What bounds it: bytes.  It moves `halo` floats per row (230,400 in mode 0
-// with RDS, 200,000 without, 38,400 in mode 3) and does no arithmetic, so
-// at HBM rate S=8 rows take a few microseconds and the launch itself is a
-// large share.  16-byte float4 accesses are used when the length, both row
-// strides and every pointer allow them; a scalar path takes the rest
-// (custom modes, misaligned views).
+// with RDS, 200,000 without, 38,400 in mode 3) and does no arithmetic: S=8
+// rows of mode 0 read 6.5 MB and write 7.4 MB, 4.1 us at HBM rate, and in
+// back-to-back calls the tails sit in the 50 MB L2.  So the copy must keep
+// enough bytes in flight per SM, and the host work around the launch must
+// stay below the copy.  The row-block entry copies with Hopper's bulk
+// copy: one thread per block moves a 16 KB chunk global -> shared under an
+// mbarrier and shared -> global in a bulk group; zero rows are 16-byte
+// stores.  It won against float4 loads, four independent 16-byte loads in
+// flight per thread before their stores, timed in one call on an H100
+// (700 W) at S=8 shards of mode 0's halo with L2 flushed before each
+// launch: 0.0200-0.0204 ms against 0.0216-0.0220 at C=4 rows (6-9% less),
+// a tie at C=1, 0.0069 against 0.0069-0.0070 (scripts/torch_fir_halo_ab.py,
+// PERF.md).  Layouts that are not 16-byte multiples are refused here: the
+// wrapper sends them to the table entry.
 //
 // Not NCCL: send/recv is a library of finished kernels and needs one
 // process per card; this one process drives S shards on one card or on
@@ -39,6 +56,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bulk_copy.cuh"
 
 namespace {
 
@@ -85,6 +104,56 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// --- the row-block entry ------------------------------------------------------
+
+constexpr int kBulkFloats = 4096;                  // 16 KB per bulk chunk
+constexpr int kBulkThreads = 128;
+
+// The shards of one card: row (b, k, r) of time row b, shard k, channel
+// row r starts at base + b * group + k * shard + r * row (in floats).
+struct RowBlocks {
+  float* base;
+  int shards, rows;
+  long long n, length, row, shard, group;
+
+  // blockIdx.y = ((b * shards) + k) * rows + r
+  __device__ float* dst(int y, int* k) const {
+    const int r = y % rows;
+    *k = (y / rows) % shards;
+    const int b = y / (rows * shards);
+    return base + b * group + *k * shard + r * row;
+  }
+};
+
+// One thread moves the block's chunk through shared memory with two bulk
+// copies; zero rows are float4 stores by every thread.
+__global__ void __launch_bounds__(kBulkThreads)
+    halo_rows_bulk_kernel(const RowBlocks rb) {
+  __shared__ __align__(128) float buf[kBulkFloats];
+  __shared__ __align__(8) uint64_t full;
+  int k;
+  float* dst = rb.dst(blockIdx.y, &k);
+  const long long lo = static_cast<long long>(blockIdx.x) * kBulkFloats;
+  const int count = static_cast<int>(min(static_cast<long long>(kBulkFloats),
+                                         rb.n - lo));
+  if (k == 0) {
+    float4* d = reinterpret_cast<float4*>(dst + lo);
+    for (int i = threadIdx.x; i < count / 4; i += kBulkThreads)
+      d[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return;
+  }
+  if (threadIdx.x != 0) return;
+  const float* src = dst - rb.shard + rb.length - rb.n;
+  const uint32_t bytes = static_cast<uint32_t>(count) * 4u;
+  bulk::bar_init(&full, 1);
+  bulk::bar_init_fence();
+  bulk::bar_expect(&full, bytes);
+  bulk::load(buf, src + lo, bytes, &full);
+  bulk::bar_wait(&full, 0);
+  bulk::store(dst + lo, buf, bytes);
+  bulk::store_wait_all();
+}
+
 }  // namespace
 
 // K6 on `device`: for s < shards and r < rows,
@@ -125,6 +194,41 @@ extern "C" int sdr_halo_shift(int device, const float* const* src,
     halo_kernel<false><<<grid, kThreads, 0, st>>>(table, n, src_stride,
                                                   dst_stride);
   }
+  err = cudaGetLastError();
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+// K6 over row blocks on `device` (see the note at the top): for every time
+// row b < time_rows, shard k < shards and channel row r < rows, the first
+// n floats of row (b, k, r) become the last n floats of row (b, k-1, r)
+// (its floats length-n .. length-1), and zeros for k = 0.  Offsets are in
+// floats.  Bulk copies: n, length and every stride must be multiples of
+// 4 floats and base 16-byte aligned (they move 16-byte multiples only).
+// Launches on `stream`, which must belong to `device`; returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for what it
+// does not take).
+extern "C" int sdr_halo_shift_rows(int device, float* base, int time_rows,
+                                   int shards, int rows, long long n,
+                                   long long length, long long row_stride,
+                                   long long shard_stride,
+                                   long long group_stride, void* stream) {
+  const long long grid_y = static_cast<long long>(time_rows) * shards * rows;
+  if (base == nullptr || time_rows <= 0 || shards <= 0 || rows <= 0 ||
+      grid_y > 65535 || n <= 0 || 2 * n > length || !aligned16(base) ||
+      n % 4 != 0 || length % 4 != 0 || row_stride % 4 != 0 ||
+      shard_stride % 4 != 0 || group_stride % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const RowBlocks rb{base, shards, rows, n, length, row_stride, shard_stride,
+                     group_stride};
+  const dim3 grid(static_cast<unsigned>((n + kBulkFloats - 1) / kBulkFloats),
+                  static_cast<unsigned>(grid_y));
+  halo_rows_bulk_kernel<<<grid, kBulkThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(rb);
   err = cudaGetLastError();
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);

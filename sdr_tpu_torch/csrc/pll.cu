@@ -72,6 +72,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
 
 constexpr float kPi = 3.14159265358979323846f;      // float(pi)
@@ -107,55 +109,13 @@ struct Shape {
                       (MIX ? 2 * kTile + kArgTile : 2 * kTile);
 };
 
-// --- mbarriers and bulk copies ---------------------------------------------
+// --- mbarriers and bulk copies (bulk_copy.cuh) ------------------------------
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// `bytes` (a multiple of 16) from 16-byte-aligned global memory into
-// shared memory, counted on `bar` when they have landed.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
+using bulk::bar_arrive;
+using bulk::bar_expect;
+using bulk::bar_init;
+using bulk::bar_wait;
+using bulk::smem_addr;
 
 // The [kRows x kLanes] box of `map` at lane `c0`, step `c1` into shared
 // memory (rows kLanes floats apart; outside the array zeros), counted on
@@ -350,8 +310,8 @@ __device__ void load_tiles(const Ring& ring, const float* xs,
     float* dm = ring.mix + slot * kTile;
     if (whole) {
       const size_t at = static_cast<size_t>(t0) * ld;
-      bulk_load(dx, xs + at, bytes, &ring.full[slot]);
-      if (MIX) bulk_load(dm, mix + at, bytes, &ring.full[slot]);
+      bulk::load(dx, xs + at, bytes, &ring.full[slot]);
+      if (MIX) bulk::load(dm, mix + at, bytes, &ring.full[slot]);
     } else {
       tile_load(dx, map_x, lane0, t0, &ring.full[slot]);
       if (MIX) tile_load(dm, map_m, lane0, t0, &ring.full[slot]);
@@ -522,7 +482,7 @@ __global__ void __launch_bounds__(Shape<MIX>::kThreads)
       bar_init(&ring.empty[s], 32 * (1 + kHelpers));
       bar_init(&ring.ready[s], 32);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bulk::bar_init_fence();
   }
   __syncthreads();
   constexpr int kLoader = Shape<MIX>::kLoader;

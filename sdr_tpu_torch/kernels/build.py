@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels into one shared library and load it.
 
-The sources are ``sdr_tpu_torch/csrc/*.cu``.  They are compiled at first
+The sources are ``sdr_tpu_torch/csrc/*.cu`` (with the headers
+``csrc/*.cuh`` they include).  They are compiled at first
 use by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all
 started together, and linked into one ``.so`` with a plain C interface,
 which is loaded with ``ctypes``: a build takes seconds, where an extension
@@ -24,6 +25,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sdr_tpu_torch"
 LIB_NAME = "libsdr_tpu_torch.so"
@@ -38,6 +41,10 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
@@ -49,7 +56,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_ROOT / digest.hexdigest()[:16] / LIB_NAME
@@ -101,10 +108,12 @@ def load() -> ctypes.CDLL:
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # iq, state, h, y, batch, n, k, decim, stream
     lib.sdr_fir_frontend_u8.argtypes = [p, p, p, p, i, i, i, i, p]
+    # x, state, h, y, new_state, geometry (19 long longs:
+    # ops/fir_decim.py _recipe), stream
+    lib.sdr_fir_decim_f32.argtypes = [p, p, p, p, p, p, p]
     # x, state, h, y, batch, arms, outer_stride, arm_stride, step, n, k,
     # decim, stream
-    for fn in (lib.sdr_fir_decim_f32, lib.sdr_fir_decim_i8):
-        fn.argtypes = [p, p, p, p, i, i, q, q, q, i, i, i, p]
+    lib.sdr_fir_decim_i8.argtypes = [p, p, p, p, i, i, q, q, q, i, i, i, p]
     # xs, carry0, consts, args, carry_out, n, lanes, ld, stream
     lib.sdr_pll_angles.argtypes = [p, p, p, p, p, i, i, i, p]
     # xs, mix, carry0, consts, mixer, carry_out, n, lanes, ld, stream
@@ -115,14 +124,34 @@ def load() -> ctypes.CDLL:
     # shards, rows, n, src_stride, dst_stride, stream
     table = ctypes.POINTER(ctypes.c_void_p)
     lib.sdr_halo_shift.argtypes = [i, table, table, i, i, q, q, q, p]
+    # device, base, time_rows, shards, rows, n, length, row_stride,
+    # shard_stride, group_stride, stream
+    lib.sdr_halo_shift_rows.argtypes = [i, p, i, i, i, q, q, q, q, q, p]
     # device, peer
     lib.sdr_halo_enable_peer.argtypes = [i, i]
     for fn in (lib.sdr_fir_frontend_u8, lib.sdr_fir_decim_f32,
                lib.sdr_fir_decim_i8, lib.sdr_pll_angles, lib.sdr_pll_mixer,
                lib.sdr_pll_chain_floor, lib.sdr_halo_shift,
-               lib.sdr_halo_enable_peer):
+               lib.sdr_halo_shift_rows, lib.sdr_halo_enable_peer):
         fn.restype = ctypes.c_int
     return lib
+
+
+# PyTorch's private binding of its current raw stream (checked against
+# torch 2.11 on the card; tests/test_torch_k5_k6_plan.py holds its
+# declaration in torch's stubs, which CPU builds ship too, so a rename
+# fails there).  CUDA builds have it; where it is missing, the public call
+# gives the same handle through a Stream object.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(device: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device
+    ``device``, without building a ``torch.cuda.Stream`` object (the
+    wrappers launch on it every call)."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return _RAW_STREAM(device)
 
 
 def check(rc: int, name: str) -> None:

@@ -4,28 +4,154 @@ Port of ``sdr_tpu/ops/pallas_fir.py::fir_block_decim_pallas`` (the kernel
 ``fir_decim_pallas``).  Contract: ``x`` (..., N) float32, taps ``h`` (K,),
 overlap-save ``state`` (..., K-1); returns ``(y (..., N/D), new_state
 (..., K-1))`` with ``y[j] = sum_n h[n] * xc[K-1 + j*D - n]``, ``xc = [state,
-x]``, and ``N % D == 0``.
+x]``, ``N % D == 0``, and ``new_state`` the last K-1 samples of ``xc``.
 
 On a CUDA tensor :func:`fir_block_decim` launches the hand-written kernel
-``csrc/fir_decim.cu``; on a CPU tensor it runs :func:`fir_block_decim_plain`
-(the banded-matmul FIR of ``ops.fir``).  The kernel reads ``x`` through its
-strides: the time axis may have any element step (the receiver hands it
-the (..., 2, N) view of interleaved I/Q, step 2, with no deinterleaved
-copy) as long as the leading dims but the last collapse into one.
+``csrc/fir_decim.cu``, which writes ``y`` and ``new_state`` in one launch;
+on a CPU tensor it runs :func:`fir_block_decim_plain` (the banded-matmul
+FIR of ``ops.fir``).  The kernel reads ``x`` in place through its strides:
+a contiguous time axis, or the (..., 2, N) view of interleaved I/Q (element
+step 2, the receiver's float front-end, staged once for both arms); any
+other layout is copied to contiguous first.  Its geometry is
+:func:`plan`, a pure function of the shape.
 
-The same kernel template over int8 input is K4
+The int8 instance of the same source is K4
 (``ops.fir_frontend.fir_frontend_u8_deinterleaved``), launched through
-:func:`launch`.
+:func:`launch_i8`.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from sdr_tpu_torch.kernels import build
 from sdr_tpu_torch.ops import fir
 
-_ENTRY = {torch.float32: "sdr_fir_decim_f32", torch.int8: "sdr_fir_decim_i8"}
+SMS = 132                      # the H100 SXM's SMs, for plans made off the card
+MAX_SHARED = 232_448           # shared bytes a block may use
+SM_SHARED = 233_472            # shared bytes of an SM (1 KB kept per block)
+TAPS_STEP = 4                  # taps per phase, a multiple (csrc kT)
+BAR_BYTES = 64                 # the mbarriers at the start of shared memory
+MAX_WARPS = 4                  # compute warps per block
+
+
+class FirPlan(NamedTuple):
+    """The launch geometry of K5 for one shape (:func:`plan`).
+
+    A work item is (span, tile): ``tile`` consecutive outputs of each of a
+    span's ``lanes`` interleaved arms.  A block runs one producer warp and
+    ``warps`` compute warps; compute warp w takes arm ``w % lanes`` and
+    outputs ``(w // lanes) * 32 * r`` .. + ``32 * r`` of the item, ``r``
+    per lane.  Blocks walk items ``block, block + grid, ...``."""
+
+    spans: int
+    lanes: int
+    n_out: int
+    r: int              # consecutive outputs per thread: 8, or 1 when small
+    warps: int          # compute warps per block
+    tile: int           # outputs per arm and work item
+    n_tiles: int        # work items per span
+    r_pad: int          # taps per phase, ceil(K/D) rounded up to TAPS_STEP
+    spw: int            # floats per phase row of a warp's split buffer:
+    #                     its 32 * r + r_pad window rows rounded up to 8
+    #                     (the swizzle permutes aligned groups of 8), then
+    #                     padded for the banks
+    raw: int            # floats per stage of the staged span
+    stages: int         # stages of the ring
+    smem: int           # dynamic shared bytes per block
+    grid: int           # persistent blocks
+
+    @property
+    def items(self) -> int:
+        return self.spans * self.n_tiles
+
+    def outputs(self, block: int) -> list[tuple[int, int, int]]:
+        """(output row, first output, count) of every warp and lane of
+        ``block``, item after item, as the kernel assigns them; lanes past
+        the end of a row compute nothing."""
+        out = []
+        for item in range(block, self.items, self.grid):
+            span, j0 = divmod(item, self.n_tiles)
+            j0 *= self.tile
+            j1 = min(j0 + self.tile, self.n_out)
+            for w in range(self.warps):
+                arm, chunk = w % self.lanes, w // self.lanes
+                for lane in range(32):
+                    j = j0 + chunk * 32 * self.r + lane * self.r
+                    if j < j1:
+                        out.append((span * self.lanes + arm, j,
+                                    min(self.r, j1 - j)))
+        return out
+
+
+def _shared_bytes(decim: int, r_pad: int, raw: int, stages: int, warps: int,
+                  spw: int) -> int:
+    return BAR_BYTES + 4 * (decim * r_pad + stages * raw + warps * decim * spw)
+
+
+def blocks_per_sm(p: FirPlan) -> int:
+    """Blocks of plan ``p`` that fit on one SM at once (shared memory,
+    threads)."""
+    return max(1, min(SM_SHARED // (p.smem + 1024),
+                      2048 // (32 * (p.warps + 1)), 32))
+
+
+def plan(spans: int, lanes: int, n: int, k: int, decim: int,
+         sms: int = SMS) -> FirPlan:
+    """K5's geometry for ``spans`` staged rows of ``lanes`` interleaved arms
+    of ``n`` samples, ``k`` taps, decimation ``decim``, on a card of
+    ``sms`` SMs.
+
+    R = 8 outputs per thread and four compute warps (two for interleaved
+    I/Q, one per arm, whose spans are twice as long), each 256 outputs of
+    an arm; when that gives fewer items than SMs, R = 1 and one warp per
+    arm, 32 outputs per item, so that a small block still spreads over the
+    card.  One to three stages, whichever lets the most blocks share an
+    SM.  The grid is as many blocks as fit on the card, at most one per
+    item."""
+    if lanes not in (1, 2) or spans < 1 or n < 1 or k < 2 or decim < 1 \
+            or n % decim:
+        raise ValueError(f"no K5 plan for spans {spans}, lanes {lanes}, n "
+                         f"{n}, k {k}, decim {decim}")
+    n_out = n // decim
+    r_pad = -(-(-(-k // decim)) // TAPS_STEP) * TAPS_STEP
+    # phase rows of a warp's split: a row offset of 4 * ceil(8/D) words
+    # mod 32 spreads the phases of one staged word run over the banks
+    row_pad = (4 * -(-8 // decim)) % 32
+
+    def shape(r: int, chunks: int, stages: int) -> FirPlan:
+        warps = chunks * lanes
+        tile = chunks * 32 * r
+        n_tiles = -(-n_out // tile)
+        rows_m = -(-(32 * r + r_pad) // 8) * 8
+        spw = rows_m + (row_pad - rows_m) % 32
+        raw = -(-((tile + r_pad) * decim * lanes + 8) // 4) * 4
+        smem = _shared_bytes(decim, r_pad, raw, stages, warps, spw)
+        p = FirPlan(spans, lanes, n_out, r, warps, tile, n_tiles, r_pad,
+                    spw, raw, stages, smem, 0)
+        return p._replace(grid=min(p.items, blocks_per_sm(p) * sms))
+
+    r, chunks = 8, (MAX_WARPS if lanes == 1 else 1)
+    if spans * -(-n_out // (chunks * 32 * r)) < sms:
+        r, chunks = 1, 1
+    # of the ring depths that fit, the one that lets the most blocks share
+    # an SM, the deeper on a tie: at the paths' large shapes one stage and
+    # more resident blocks ran faster than two or three (PERF.md)
+    shapes = [shape(r, chunks, st) for st in (3, 2, 1)]
+    fits = [q for q in shapes if q.smem <= MAX_SHARED]
+    if not fits:
+        raise ValueError(f"K5 needs {shapes[-1].smem} shared bytes for k "
+                         f"{k}, decim {decim}: more than {MAX_SHARED}")
+    return max(fits, key=lambda q: (blocks_per_sm(q), q.stages))
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fir_block_decim_plain(x: torch.Tensor, h: torch.Tensor,
@@ -44,42 +170,131 @@ def tail(x: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
                      dim=-1)
 
 
-def launch(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
-           decim: int) -> torch.Tensor:
-    """Launch the ``fir_decim.cu`` instance for ``x.dtype`` (float32: K5;
-    int8 scaled by 2^-7: K4) on CUDA tensors; returns ``y``.  Raises on
-    what the kernel does not take.  Counts nothing: each public wrapper
-    counts its own launches."""
-    if x.dtype not in _ENTRY or state.dtype != x.dtype:
-        raise TypeError(f"x and state must both be float32 or int8, got "
-                        f"{x.dtype} and {state.dtype}")
+def _check(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
+           decim: int) -> None:
+    """What the FIR kernels need of their operands; raises otherwise."""
     if h.dtype != torch.float32 or h.ndim != 1 or not h.is_contiguous():
         raise ValueError("taps must be a contiguous 1-D float32 tensor")
-    k, n = h.shape[0], x.shape[-1]
-    if tuple(state.shape) != tuple(x.shape[:-1]) + (k - 1,):
+    n = x.shape[-1]
+    if state.shape[:-1] != x.shape[:-1] or state.shape[-1] != h.shape[0] - 1:
         raise ValueError(f"state {tuple(state.shape)} must be "
-                         f"{tuple(x.shape[:-1]) + (k - 1,)}")
+                         f"{tuple(x.shape[:-1]) + (h.shape[0] - 1,)}")
     if n == 0 or n % decim:
         raise ValueError(f"block of {n} samples is not a positive multiple "
                          f"of the decimation {decim}")
-    if not (x.device == h.device == state.device and x.is_cuda):
-        raise ValueError("x, taps and state must be on one CUDA device")
+    if not x.get_device() == h.get_device() == state.get_device():
+        raise ValueError("x, taps and state must be on one device")
     if not state.is_contiguous():
         raise ValueError("state must be contiguous")
-    # rows of x as (outer, arm): view() raises if the dims before the last
-    # two do not collapse into one stride
-    x3 = x.view((-1,) + tuple(x.shape[-2:])) if x.ndim >= 2 else x.view(
-        1, 1, n)
-    batch = x3.shape[0] * x3.shape[1]
-    y = torch.empty(tuple(x.shape[:-1]) + (n // decim,), dtype=torch.float32,
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x as (outer, arms, n): view() raises if the dims before the last two
+    do not collapse into one stride."""
+    if x.ndim == 1:
+        return x.view(1, 1, -1)
+    return x.view((-1,) + tuple(x.shape[-2:]))
+
+
+def _spans(x: torch.Tensor) -> tuple[int, int, int, int, int]:
+    """How K5 reads ``x`` in place: (spans, lanes, spans per outer row,
+    outer stride, arm stride), or spans 0 when it must be copied to
+    contiguous first.  Integer arithmetic on shape and strides, no view."""
+    shape, st = x.shape, x.stride()
+    if x.ndim == 1:
+        return (1, 1, 1, 0, 0) if st[0] == 1 else (0, 0, 0, 0, 0)
+    arms, step = shape[-2], st[-1]
+    outer = 1
+    for i in range(x.ndim - 3, -1, -1):      # the dims before the last two
+        if shape[i] != 1 and st[i] != st[-3] * outer:
+            return 0, 0, 0, 0, 0
+        outer *= shape[i]
+    os_ = st[-3] if x.ndim > 2 else 0
+    if step == 1:
+        return outer * arms, 1, arms, os_, st[-2]
+    if arms == 2 and step == 2 and st[-2] == 1:
+        return outer, 2, 1, os_, 0                  # interleaved I/Q
+    return 0, 0, 0, 0, 0
+
+
+class _Recipe(NamedTuple):
+    """What one layout of K5's operands needs per call, worked out once."""
+
+    copy: bool                  # x must be made contiguous first
+    geometry: ctypes.Array      # the kernel's 19 integers (csrc)
+    y_shape: tuple
+
+
+# layout key (shapes, strides, decimation, device) -> _Recipe
+_recipes: dict[tuple, _Recipe] = {}
+
+
+def _recipe(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
+            decim: int) -> _Recipe:
+    _check(x, h, state, decim)
+    copy = not _spans(x)[0]
+    spans, lanes, spo, os_, as_ = _spans(x.contiguous() if copy else x)
+    k, n = h.shape[0], x.shape[-1]
+    device = x.get_device()
+    p = plan(spans, lanes, n, k, decim, _sms(device))
+    geometry = (ctypes.c_longlong * 19)(device, spans, lanes, spo, n, k,
+                                        decim, os_, as_, *p[3:])
+    return _Recipe(copy, geometry, tuple(x.shape[:-1]) + (n // decim,))
+
+
+def launch_f32(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
+               decim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K5 on CUDA tensors; returns ``(y, new_state)``.  Raises on
+    what the kernel does not take.  Counts nothing: :func:`fir_block_decim`
+    counts.
+
+    The checks that follow from shapes and strides, the layout and the
+    launch plan are worked out once per layout (:func:`_recipe`); each call
+    checks the taps' type and the devices, allocates and launches."""
+    device = x.get_device()
+    key = (x.shape, x.stride(), state.shape, state.stride(), h.shape,
+           h.stride(), decim, device)
+    rec = _recipes.get(key)
+    if rec is None:
+        if len(_recipes) >= 256:
+            _recipes.clear()
+        rec = _recipes[key] = _recipe(x, h, state, decim)
+    if h.dtype != torch.float32 or not (
+            h.get_device() == state.get_device() == device):
+        _check(x, h, state, decim)          # raises with the reason
+    if rec.copy:
+        x = x.contiguous()
+    y = x.new_empty(rec.y_shape)
+    new_state = torch.empty_like(state)
+    rc = build.load().sdr_fir_decim_f32(
+        x.data_ptr(), state.data_ptr(), h.data_ptr(), y.data_ptr(),
+        new_state.data_ptr(), rec.geometry, build.current_stream(device))
+    build.check(rc, "sdr_fir_decim_f32")
+    return y, new_state
+
+
+def launch_i8(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
+              decim: int) -> torch.Tensor:
+    """Launch K4, the int8 instance (x and state scaled by 2^-7), on CUDA
+    tensors; returns ``y``.  Raises on what the kernel does not take.
+    Counts nothing: its public wrapper counts."""
+    if x.dtype != torch.int8 or state.dtype != torch.int8:
+        raise TypeError(f"x and state must both be int8, got {x.dtype} and "
+                        f"{state.dtype}")
+    _check(x, h, state, decim)
+    if not x.is_cuda:
+        raise ValueError("K4 launches on CUDA tensors only")
+    k, n = h.shape[0], x.shape[-1]
+    x3 = _rows(x)
+    y = torch.empty(x.shape[:-1] + (n // decim,), dtype=torch.float32,
                     device=x.device)
-    lib = build.load()
     with torch.cuda.device(x.device):
-        rc = getattr(lib, _ENTRY[x.dtype])(
+        rc = build.load().sdr_fir_decim_i8(
             x3.data_ptr(), state.data_ptr(), h.data_ptr(), y.data_ptr(),
-            batch, x3.shape[1], x3.stride(0), x3.stride(1), x3.stride(2), n,
-            k, decim, torch.cuda.current_stream().cuda_stream)
-    build.check(rc, _ENTRY[x.dtype])
+            x3.shape[0] * x3.shape[1], x3.shape[1], x3.stride(0),
+            x3.stride(1), x3.stride(2), n, k, decim,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "sdr_fir_decim_i8")
     return y
 
 
@@ -89,15 +304,16 @@ def fir_block_decim(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
 
     A CUDA tensor launches the kernel and a CPU tensor takes the plain
     version; any other device raises."""
-    if x.device.type == "cpu":
-        return fir_block_decim_plain(x, h, state, decim)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return fir_block_decim_plain(x, h, state, decim)
         raise RuntimeError(f"no K5 kernel for device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"K5 takes float32 input, got {x.dtype}")
-    y = launch(x, h, state, decim)
+    if x.dtype != torch.float32 or state.dtype != torch.float32:
+        raise TypeError(f"K5 takes float32 input and state, got {x.dtype} "
+                        f"and {state.dtype}")
+    out = launch_f32(x, h, state, decim)
     fir_block_decim.launches += 1
-    return y, tail(x, state)
+    return out
 
 
 fir_block_decim.launches = 0

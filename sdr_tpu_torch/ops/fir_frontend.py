@@ -132,7 +132,7 @@ def fir_frontend_u8_deinterleaved(iq_u8: torch.Tensor, h: torch.Tensor,
     _check(iq_u8, h, st2, decim)
     x2 = _deinterleave((iq_u8 ^ 0x80).view(torch.int8)).contiguous()
     st_i8 = torch.round(st2 * 128.0).to(torch.int8)
-    y = fir_decim.launch(x2, h, st_i8, decim)
+    y = fir_decim.launch_i8(x2, h, st_i8, decim)
     fir_frontend_u8_deinterleaved.launches += 1
     return y, fir_decim.tail(x2, st_i8).to(torch.float32) * (1.0 / 128.0)
 

@@ -21,8 +21,9 @@ one process here holds the S shards on the devices of a
 device run as rows of one batch through the same ``process_block`` as a
 contiguous run: on one card, time sharding turns the serial PLL of one
 station into S (or C x S) lanes.  The halo exchange is kernel K6
-(``parallel.halo``): on CUDA tensors it runs on the card, on CPU tensors
-its plain version runs.  The input is normalized float32, so the RF
+(``parallel.halo``; one launch per card, the shards of one card handed
+over as row blocks of one buffer): on CUDA tensors it runs on the card,
+on CPU tensors its plain version runs.  The input is normalized float32, so the RF
 front-end on this path is K5 (float), as in the JAX package.
 """
 
@@ -237,10 +238,15 @@ def time_sharded_receive(iq: np.ndarray, mesh: Mesh,
             sh.rows(grp.cells, segs, 0, sh.seg)))
         ext.append(buf)
     c = sh.c_local
-    khalo.halo_shift_right(
-        [[ext[g][j * c:(j + 1) * c] for g, j in
-          (sh.where[(b, k)] for k in range(sh.s))]
-         for b in range(sh.grid.shape[0])], sh.halo_raw)
+    if len(ext) == 1:
+        # one device: its cells (b, k), in order, are row blocks of ext[0]
+        khalo.halo_shift_right(ext[0].view(sh.grid.shape[0], sh.s, c, length),
+                               sh.halo_raw)
+    else:
+        khalo.halo_shift_right(
+            [[ext[g][j * c:(j + 1) * c] for g, j in
+              (sh.where[(b, k)] for k in range(sh.s))]
+             for b in range(sh.grid.shape[0])], sh.halo_raw)
 
     runner = _Runner(sh, mc, stereo, with_rds)
     runner.warm_up([buf[:, :sh.halo_raw] for buf in ext])

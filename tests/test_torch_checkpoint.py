@@ -88,7 +88,7 @@ def test_input_dtype_mismatch_is_refused_as_in_jax(tmp_path, stored, expect):
     path = pckpt.save(str(tmp_path / "c"), convert.state_from_numpy(
         _flat_state(3)), 0, input_dtype=stored)
     with pytest.raises(ValueError):
-        pckpt.load(path, expect_input_dtype=expect)
+        pckpt.load(path, expect_input_dtype=expect, device="cpu")
     with pytest.raises(ValueError):
         jckpt.load(path, expect_input_dtype=expect)
 
@@ -98,12 +98,26 @@ def test_unrecorded_checkpoint_checks_the_u8_tail(tmp_path, capsys):
     refused for u8 resume, after a warning; a u8-normalized one loads."""
     flat = _flat_state(4)
     ok = pckpt.save(str(tmp_path / "ok"), convert.state_from_numpy(flat), 0)
-    pckpt.load(ok, expect_input_dtype="uint8")
+    pckpt.load(ok, expect_input_dtype="uint8", device="cpu")
     assert "predates input-dtype" in capsys.readouterr().err
     flat["rf_q"] = flat["rf_q"] + np.float32(0.3 / 128)
     bad = pckpt.save(str(tmp_path / "bad"), convert.state_from_numpy(flat),
                      0)
     with pytest.raises(ValueError):
-        pckpt.load(bad, expect_input_dtype="uint8")
+        pckpt.load(bad, expect_input_dtype="uint8", device="cpu")
     with np.load(bad) as z:
         assert "input_dtype" not in json.loads(str(z["__meta__"]))
+
+
+def test_load_defaults_to_the_card(tmp_path):
+    """Without ``device``, ``load`` puts the state on the card, as the
+    receiver does; where there is none it raises instead of quietly
+    loading onto the CPU."""
+    path = pckpt.save(str(tmp_path / "d"), convert.state_from_numpy(
+        _flat_state(5)), 0)
+    if torch.cuda.is_available():
+        state, _ = pckpt.load(path)
+        assert state.rf_i.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pckpt.load(path)

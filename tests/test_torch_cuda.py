@@ -9,7 +9,8 @@ machine, from the repository root:
 (``--noconftest``: tests/conftest.py configures JAX.)
 
 Tolerances: K1, K4 and K5 at 1e-5 (two fp32 summation orders; the
-carried tails are exact and must be equal); K2/K3 bit-equal (torch.equal
+carried tails are exact and must be equal; K5 writes its own and is held
+to ``tail()``); K2/K3 bit-equal (torch.equal
 on outputs and carries, every rounding explicit on both sides), over
 chained blocks at the main path's shapes and at ragged lane and step
 counts, and the chain floor bit-equal to K2's recurrence; the receiver on
@@ -17,9 +18,13 @@ the card (u8 input: K1; float input: K5) against the receiver on the CPU
 at 1e-5 on fm_demod and 5e-3 on the PLL-driven arms (the FIR products sum
 in other orders on the two devices, and the PLL lock transient amplifies
 ulps).  K6, the halo copy of time
-sharding, is bit-equal to its plain version: on one card (a 1-D row of
-shards and a channel x time grid, float4 and odd lengths, a misaligned
-view) and across two cards (skipped, with the reason, on one).
+sharding, is bit-equal to its plain version: through its row-block entry
+(S=8 shards as row blocks of one tensor, C=1 and 4 rows, shard 0's zero
+fill), and through its table entry on one card (the same tensor at an odd
+halo, views of one buffer, a 1-D row of shards and a channel x time grid,
+float4 and odd lengths, a misaligned view) and across two cards (skipped,
+with the reason, on one).  K5 is also held at tap counts whose phase
+windows end in half a swizzle group.
 """
 
 import numpy as np
@@ -98,7 +103,7 @@ def test_k1_kernel_matches_plain(dev, c, n):
     assert torch.equal(sk, sp)
 
 
-@pytest.mark.parametrize("decim", [3, 4, 8, 10])
+@pytest.mark.parametrize("decim", [3, 4, 5, 8, 10])
 @pytest.mark.parametrize("layout", ["interleaved", "stacked"])
 def test_k5_kernel_matches_plain(dev, decim, layout):
     """K5 on the receiver's interleaved I/Q view (element step 2) and on
@@ -124,6 +129,59 @@ def test_k5_kernel_matches_plain(dev, decim, layout):
         _close(yk, yp, K1_ATOL)
         assert torch.equal(sk, sp)
     assert fir_decim.fir_block_decim.launches == before + 3
+
+
+@pytest.mark.parametrize("decim", [3, 4, 5, 8, 10])
+@pytest.mark.parametrize("layout", ["interleaved", "stacked"])
+@pytest.mark.parametrize("c", [1, 2, 64, 512])
+def test_k5_kernel_at_the_paths_widths(dev, decim, layout, c):
+    """One block of 5,760 outputs per row at C = 1, 2, 64, 512 (R = 1 and
+    R = 8 plans, ragged last tiles), then a block shorter than K-1 chained
+    on the kernel's own state: outputs within K1_ATOL, each new state
+    equal to ``tail()`` of the block."""
+    rng = np.random.default_rng(100 * c + decim)
+    k = 151
+    h = torch.tensor(gfilt.lowpass_taps(k, decim * 240e3, 100e3),
+                     dtype=torch.float32, device=dev)
+    sk = torch.tensor(rng.standard_normal((c, 2, k - 1)),
+                      dtype=torch.float32, device=dev)
+    for n in (decim * 5_760, decim * 13):
+        x = torch.tensor(rng.standard_normal((c, 2 * n)), dtype=torch.float32,
+                         device=dev)
+        x = (x.reshape(c, n, 2).movedim(-1, -2) if layout == "interleaved"
+             else x.reshape(c, 2, n))
+        yk, nk = fir_decim.fir_block_decim(x, h, sk, decim)
+        yp, _ = fir_decim.fir_block_decim_plain(x, h, sk, decim)
+        torch.cuda.synchronize()
+        _close(yk, yp, K1_ATOL)
+        assert torch.equal(nk, fir_decim.tail(x, sk))
+        sk = nk
+
+
+@pytest.mark.parametrize("k,decim,c", [(31, 10, 1), (31, 10, 64),
+                                        (125, 3, 1), (125, 3, 64)])
+@pytest.mark.parametrize("layout", ["interleaved", "stacked"])
+def test_k5_kernel_at_odd_tap_counts(dev, k, decim, c, layout):
+    """Tap counts whose window rows per phase (32 * R + r_pad) end in half
+    a swizzle group: K=31 at D=10 (the R = 1 plan at C=1) and K=125 at D=3
+    (the R = 8 plan at C=64).  A block of 5,760 outputs per row, then a
+    short one on the kernel's own state, within K1_ATOL; states equal."""
+    rng = np.random.default_rng(k * c + decim)
+    h = torch.tensor(gfilt.lowpass_taps(k, decim * 240e3, 100e3),
+                     dtype=torch.float32, device=dev)
+    sk = torch.tensor(rng.standard_normal((c, 2, k - 1)),
+                      dtype=torch.float32, device=dev)
+    for n in (decim * 5_760, decim * 7):
+        x = torch.tensor(rng.standard_normal((c, 2 * n)), dtype=torch.float32,
+                         device=dev)
+        x = (x.reshape(c, n, 2).movedim(-1, -2) if layout == "interleaved"
+             else x.reshape(c, 2, n))
+        yk, nk = fir_decim.fir_block_decim(x, h, sk, decim)
+        yp, _ = fir_decim.fir_block_decim_plain(x, h, sk, decim)
+        torch.cuda.synchronize()
+        _close(yk, yp, K1_ATOL)
+        assert torch.equal(nk, fir_decim.tail(x, sk))
+        sk = nk
 
 
 @pytest.mark.parametrize("c,n", [(1, 57600), (512, 57600), (2, 140)])
@@ -327,6 +385,53 @@ def test_time_sharded_two_cards_matches_one_card(dev):
         _close(getattr(o2, f), getattr(o1, f), 5e-3)
 
 
+@pytest.mark.parametrize("c", [1, 4])
+@pytest.mark.parametrize("halo", [230_400, 1_001])
+def test_k6_row_blocks_match_plain(dev, c, halo):
+    """S=8 shards as row blocks of one buffer ([halo | segment] rows, as
+    time_sharded_receive lays them out): one launch, bit-equal to the plain
+    version, shard 0 zero-filled.  Bulk copies move 16-byte multiples only:
+    the row-block entry takes mode 0's halo, and the odd halo takes the
+    table entry."""
+    s, seg = 8, halo + 64
+    rng = np.random.default_rng(halo + c)
+    ext = torch.full((s * c, halo + seg), float("nan"), device=dev)
+    ext[:, halo:] = torch.from_numpy(
+        rng.standard_normal((s * c, seg)).astype(np.float32))
+    want = ext.clone()
+    phalo.halo_fill_plain([[want[j * c:(j + 1) * c] for j in range(s)]],
+                          halo)
+    buf = ext.view(1, s, c, halo + seg)
+    before = (phalo.halo_shift_right.launches,
+              phalo.halo_shift_right.row_block_launches)
+    phalo.halo_shift_right(buf, halo)
+    assert (phalo.halo_shift_right.launches,
+            phalo.halo_shift_right.row_block_launches) == (
+                before[0] + 1, before[1] + (halo % 4 == 0))
+    torch.cuda.synchronize()
+    assert torch.equal(ext, want)
+    assert not ext[:c, :halo].any()
+
+
+def test_k6_views_of_one_buffer_take_the_table(dev):
+    """Time rows of views of one buffer (a 2 x 4 grid of 3-row shards),
+    handed over as lists: one launch of the table entry, bit-equal."""
+    t, s, c, halo = 2, 4, 3, 38_400
+    ext = torch.randn(t * s * c, 2 * halo + 64, device=dev)
+    want = ext.clone()
+    rows = lambda e: [[e[(b * s + k) * c:(b * s + k + 1) * c]
+                       for k in range(s)] for b in range(t)]
+    phalo.halo_fill_plain(rows(want), halo)
+    before = (phalo.halo_shift_right.launches,
+              phalo.halo_shift_right.row_block_launches)
+    phalo.halo_shift_right(rows(ext), halo)
+    torch.cuda.synchronize()
+    assert (phalo.halo_shift_right.launches,
+            phalo.halo_shift_right.row_block_launches) == (
+                before[0] + 1, before[1])
+    assert torch.equal(ext, want)
+
+
 @pytest.mark.parametrize("bad", ["mix", "dtype", "stride"])
 def test_k6_wrapper_raises(dev, bad):
     ok = torch.zeros(2, 64, device=dev)
@@ -345,9 +450,12 @@ def test_time_sharded_on_card_matches_cpu_and_chunked(dev):
                               with_rds=True, seed=21)
     iq = synth.u8_to_float(res.iq_u8)[: 4 * 7 * 19_200]
     kw = dict(stereo=True, with_rds=True, overlap_if=1920, block_if=960)
-    before = phalo.halo_shift_right.launches
+    before = (phalo.halo_shift_right.launches,
+              phalo.halo_shift_right.row_block_launches)
     og = pts.time_sharded_receive(iq, Mesh([dev] * 4, ("time",)), 0, **kw)
-    assert phalo.halo_shift_right.launches == before + 1
+    assert (phalo.halo_shift_right.launches,
+            phalo.halo_shift_right.row_block_launches) == (
+                before[0] + 1, before[1] + 1)
     oc = pts.time_sharded_receive(iq, Mesh(["cpu"] * 4, ("time",)), 0, **kw)
     _close(og.fm_demod, oc.fm_demod, 1e-5)
     for f in ("left", "right", "rds_symbols"):
