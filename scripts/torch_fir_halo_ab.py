@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time the port's float FIR (K5) and halo exchange (K6) on one card.
+"""Time the port's FIR kernels (K1, K4, K5), its halo exchange (K6) and
+the blocks they run in, on one card.
 
 For comparing two versions of ``sdr_tpu_torch`` in one call, in turns: the
 package is taken from ``PYTHONPATH``, so the same script times any tree
-with the same public functions (``fir_decim.fir_block_decim``,
+with the same public functions (``fir_frontend.fir_frontend_u8``,
+``fir_frontend_u8_deinterleaved``, ``fir_decim.fir_block_decim``,
 ``halo.halo_shift_right``, ``Channelizer``, ``Receiver``,
 ``time_sharded_receive``)::
 
@@ -13,8 +15,16 @@ with the same public functions (``fir_decim.fir_block_decim``,
         python3 scripts/torch_fir_halo_ab.py --label $t
     done
 
-Prints one line per measurement and a JSON line with all of them:
+Prints one line per measurement and a JSON line with all of them
+(``--parts`` picks them, by default all):
 
+* ``k1``: K1, the u8 front-end, at C=1 and C=512 (one 115,200-byte
+  block a channel): the whole call by CUDA events over 20 back-to-back
+  calls and the kernel's device time under ``torch.profiler``, beside
+  ``conv1d`` at stride 10 over the normalized, deinterleaved [state |
+  block] (made outside the timing, TF32 off), the library yardstick;
+* ``k4``: K4, the int8 form of the same function, at C=1 and C=512: the
+  call and its FIR kernel's device time;
 * K5 at the paths' six shapes (the float front-end at C=1 and C=512, the
   channelizer at C=2 and C=64 with D=4 and D=8): CUDA events over 20
   back-to-back calls, and the kernel's device time under
@@ -31,12 +41,19 @@ Prints one line per measurement and a JSON line with all of them:
   on random u8): wall by CUDA events, and under ``torch.profiler`` device
   busy (the union of kernel and memcpy intervals), idle share 1 - busy /
   wall, and K5's device time;
+* ``block``: the mode-0 stereo+RDS block on random u8 at C=1 and C=512:
+  wall per block by CUDA events over back-to-back blocks, and under
+  ``torch.profiler`` device busy, idle share, device events per block
+  and K1's device time;
 * one time-sharded step at S=8 (``process_block`` over the 8 shards' rows
   of one 115,200-sample float block, the step ``time_sharded_receive``
   repeats): the same three numbers; and a whole ``time_sharded_receive``
   of a 4 s capture at S=8 by host clock.
 
 The card's name and power limit come first.  Needs one NVIDIA GPU.
+Under ``torch.profiler`` a kernel's device time is the union of the device
+intervals of the kernels whose name holds the part's match (``fir_``:
+every FIR kernel of the port, of either tree).
 """
 
 from __future__ import annotations
@@ -137,6 +154,77 @@ def time_k5(label: str, rng, res: dict) -> None:
               f"ms), conv1d {lib:.4f} ms")
 
 
+def u8_cases(rng):
+    """The u8 front-end's operands at C=1 and C=512: one mode-0 block of
+    random bytes a channel and a u8-normalized state."""
+    from sdr_tpu_torch.models import receiver as rx
+
+    mc = rx.cfg.get_mode_config(0)
+    h = rx.design_coeffs(mc, device="cuda").rf
+    for c in (1, 512):
+        iq = torch.from_numpy(rng.integers(
+            0, 256, size=(c, mc.default_block_size(True)),
+            dtype=np.uint8)).cuda()
+        st = torch.tensor(rng.integers(-128, 128, size=(c, 2, 150)) / 128.0,
+                          dtype=torch.float32, device="cuda")
+        yield c, iq, h, st, mc.rf_decim
+
+
+def time_k1(label: str, rng, res: dict) -> None:
+    from sdr_tpu_torch.ops import fir_frontend
+
+    for c, iq, h, st, d in u8_cases(rng):
+        call = lambda: fir_frontend.fir_frontend_u8(iq, h, st, d)
+        ms = cuda_ms(call, 20)
+        dev = profiled(call, 10, "fir_")
+        x2 = (iq.reshape(c, -1, 2).movedim(-1, -2).float() - 128.0) / 128.0
+        inp = torch.cat([st, x2], dim=-1).reshape(2 * c, 1, -1).contiguous()
+        w = h.flip(0).reshape(1, 1, -1).contiguous()
+        lib = cuda_ms(lambda: torch.nn.functional.conv1d(inp, w, stride=d),
+                      20)
+        res[f"K1 C={c}"] = {"ms": ms, "kernel_ms": dev["kernel_ms"],
+                            "events": dev["events"], "conv1d_ms": lib}
+        print(f"[{label}] K1 C={c}: {ms:.4f} ms (kernel alone "
+              f"{dev['kernel_ms']:.4f} ms, {dev['events']:.0f} device "
+              f"events a call), conv1d {lib:.4f} ms")
+
+
+def time_k4(label: str, rng, res: dict) -> None:
+    from sdr_tpu_torch.ops import fir_frontend
+
+    for c, iq, h, st, d in u8_cases(rng):
+        call = lambda: fir_frontend.fir_frontend_u8_deinterleaved(iq, h, st,
+                                                                  d)
+        ms = cuda_ms(call, 20)
+        dev = profiled(call, 10, "fir_")
+        res[f"K4 C={c}"] = {"ms": ms, "kernel_ms": dev["kernel_ms"]}
+        print(f"[{label}] K4 C={c}: {ms:.4f} ms (FIR kernel alone "
+              f"{dev['kernel_ms']:.4f} ms)")
+
+
+def time_block(label: str, rng, res: dict) -> None:
+    from sdr_tpu_torch.models import receiver as rx
+
+    mc = rx.cfg.get_mode_config(0)
+    bs = mc.default_block_size(True)
+    for c, reps in ((1, 30), (512, 10)):
+        r = rx.Receiver(0, stereo=True, with_rds=True,
+                        batch_shape=(c,) if c > 1 else (), device="cuda")
+        blk = torch.from_numpy(rng.integers(
+            0, 256, size=((c,) if c > 1 else ()) + (bs,),
+            dtype=np.uint8)).cuda()
+        wall = cuda_ms(lambda: r.process(blk), reps, warmup=3)
+        prof = profiled(lambda: r.process(blk), 5, "fir_")
+        b = {"wall_ms": wall, "busy_ms": prof["busy_ms"],
+             "idle_share": 1.0 - prof["busy_ms"] / wall,
+             "k1_ms": prof["kernel_ms"], "events": prof["events"]}
+        res[f"block C={c}"] = b
+        print(f"[{label}] mode-0 block C={c}: wall {wall:.3f} ms, device "
+              f"busy {b['busy_ms']:.3f} ms, idle share "
+              f"{b['idle_share']:.3f}, {b['events']:.0f} device events, K1 "
+              f"{b['k1_ms']:.4f} ms")
+
+
 def time_k6(label: str, rng, res: dict) -> None:
     from sdr_tpu_torch.parallel import halo as khalo
 
@@ -233,12 +321,19 @@ def time_sharded(label: str, rng, res: dict) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", required=True)
-    ap.add_argument("--parts", default="k5,k6,wideband,sharded",
-                    help="comma-separated: k5, k6, wideband, sharded")
+    ap.add_argument("--parts", default="k1,k4,k5,k6,block,wideband,sharded",
+                    help="comma-separated: k1, k4, k5, k6, block, wideband, "
+                         "sharded")
+    ap.add_argument("--one-byte-form", choices=("tc", "cores"),
+                    help="the form of K1 and K4 in a tree that has both: "
+                         "tensor cores or CUDA cores")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     from sdr_tpu_torch.models import receiver as rx
+    if args.one_byte_form:
+        from sdr_tpu_torch.ops import fir_decim
+        fir_decim.ONE_BYTE_TC = args.one_byte_form == "tc"
 
     rx.pin_fp32_matmul()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -247,7 +342,8 @@ def main() -> None:
     print(f"[{args.label}] card: {smi} | torch {torch.__version__}")
     rng = np.random.default_rng(SEED)
     res = {"label": args.label, "card": smi}
-    parts = {"k5": time_k5, "k6": time_k6, "wideband": time_wideband,
+    parts = {"k1": time_k1, "k4": time_k4, "k5": time_k5, "k6": time_k6,
+             "block": time_block, "wideband": time_wideband,
              "sharded": time_sharded}
     for name in args.parts.split(","):
         parts[name](args.label, rng, res)

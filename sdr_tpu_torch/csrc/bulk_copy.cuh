@@ -1,5 +1,5 @@
 // mbarriers and Hopper bulk copies (cp.async.bulk), shared by the kernels
-// that stage through shared memory: the PLLs (pll.cu), the float FIR
+// that stage through shared memory: the PLLs (pll.cu), the FIRs
 // (fir_decim.cu) and the halo exchange (halo.cu).
 //
 // A bulk copy is issued by one thread and run by the copy engine; a load
@@ -59,7 +59,7 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
 
 // `bytes` (a multiple of 16) from 16-byte-aligned global memory into
 // shared memory, counted on `bar` when they have landed.
-__device__ __forceinline__ void load(float* dst, const float* src,
+__device__ __forceinline__ void load(void* dst, const void* src,
                                      uint32_t bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
@@ -70,7 +70,7 @@ __device__ __forceinline__ void load(float* dst, const float* src,
 
 // `bytes` (a multiple of 16) from shared memory to 16-byte-aligned global
 // memory, in the issuing thread's current bulk group.
-__device__ __forceinline__ void store(float* dst, const float* src,
+__device__ __forceinline__ void store(void* dst, const void* src,
                                       uint32_t bytes) {
   asm volatile(
       "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),

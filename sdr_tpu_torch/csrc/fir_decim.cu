@@ -1,80 +1,92 @@
-// Batched decimating FIR over float or int8 input: kernels K5 and K4.
+// Batched decimating FIR over float, u8 or int8 input: kernels K5, K1, K4.
 //
-// Replaces sdr_tpu/ops/pallas_fir.py::fir_decim_pallas (K5, float32 input,
-// body _kernel) and sdr_tpu/ops/pallas_fir_mxu.py::fir_decim_mxu_pallas
-// (K4, bias-flipped int8 input scaled by 2^-7, body _kernel).  Both compute
+// Replaces sdr_tpu/ops/pallas_fir.py::fir_decim_pallas (K5, float32 input),
+// sdr_tpu/ops/pallas_fir_mxu.py::fir_frontend_u8_pallas_int (K1, the
+// receiver's raw interleaved u8 I/Q, normalized as (x - 128) * 2^-7) and
+// sdr_tpu/ops/pallas_fir_mxu.py::fir_decim_mxu_pallas (K4, bias-flipped
+// int8 scaled by 2^-7).  All three compute
 //
 //   y[b, j] = sum_u h[K-1-u] * xc[b, j*D + u],   xc[b] = [state[b], x[b]]
 //
-// in fp32.  This is the TPU kernels' function, not their block structure:
-// their polyphase VMEM tiling, halo views and bf16 hi/lo weight split are
-// TPU layout and are not carried over, so neither has K <= 128*D here.
-// Polyphase: with u = q*D + p, output j is sum_p sum_q hp[p, q] *
-// sp[p, j + q], hp[p, q] = h[K-1 - q*D - p] (zero past h[0]) and sp[p, m]
-// = xc[m*D + p]: r_rows = ceil(K/D) taps per phase.
+// in fp32, from one template whose input type is a parameter (F32In, U8In,
+// I8In: how an element and a state element become a float).  This is the
+// TPU kernels' function, not their block structure: their polyphase VMEM
+// tiling, halo views and bf16 hi/lo weight split are TPU layout and are
+// not carried over.  Polyphase: with u = q*D + p, output j is sum_p sum_q
+// hp[p, q] * sp[p, j + q], hp[p, q] = h[K-1 - q*D - p] (zero past h[0])
+// and sp[p, m] = xc[m*D + p]: r_rows = ceil(K/D) taps per phase.
 //
-// K5 (fir_f32_kernel), redesigned for the H100.  What bounds it: per
-// output it reads D input floats and does K multiply-adds.  At the
-// channelizer's D = 8 that is ~9.4 flops per input byte, below the ~20 at
-// which the CUDA cores' 67 TFLOP/s meet 3.35 TB/s of HBM, so the bound is
-// HBM.  The first design (one thread per output) issued two shared-memory
-// loads per multiply-add, one a broadcast tap, and ran at the shared-memory
-// load rate, 22% of that bound; staging was scalar global loads at the
-// element step, with no overlap but other resident blocks.  This design:
+// What bounds it.  Per output it reads D input elements and does K
+// multiply-adds.  K5 at the channelizer's D = 8 does ~9.4 flops per input
+// byte, below the ~20 at which the CUDA cores' 67 TFLOP/s meet 3.35 TB/s
+// of HBM: HBM-bound.  K1 at K = 151, D = 10 does 30 flops per input byte:
+// on the CUDA cores it is compute-bound.
 //
-// * Register blocking.  A thread computes R = 8 consecutive outputs of one
-//   row.  Per phase it walks the taps 8 at a time (4 for the last when
-//   ceil(K/D) % 8 is 4 or less): two 16-byte broadcast loads of taps and
-//   two 16-byte loads of 8 new window samples feed 64 multiply-adds, the
-//   window's other 8 samples carried in registers from the step before:
-//   16 shared words (half of them broadcast taps) per 64 multiply-adds
-//   against the first design's 2 per multiply-add.  The phase rows are
-//   swizzled (word m at m ^ ((m >> 5 & 1) << 2)) so that the window loads
-//   of a quarter warp, 8 words apart per thread, hit all 32 banks.  The
-//   swizzle permutes aligned groups of 8 words, so a phase row holds its
-//   32*R + r_pad window rows rounded up to 8 (spw): otherwise the last,
-//   partial group of 4 would land past the row when bit 5 of its start is
-//   set.  Small shapes take R = 1 (scalar window loads), so that a C=1
-//   block still spreads over more than 132 blocks.
+// * Register blocking (the CUDA-core form).  A thread computes R = 8
+//   consecutive outputs of one row.  Per phase it walks the taps 8 at a
+//   time (4 for the last when ceil(K/D) % 8 is 4 or less): two 16-byte
+//   broadcast loads of taps and two 16-byte loads of 8 new window samples
+//   feed 64 multiply-adds, the window's other 8 samples carried in
+//   registers from the step before.  The phase rows are swizzled (word m
+//   at m ^ ((m >> 5 & 1) << 2)) so that the window loads of a quarter
+//   warp, 8 words apart per thread, hit all 32 banks.  The swizzle permutes
+//   aligned groups of 8 words, so a phase row holds its 32*R + r_pad window
+//   rows rounded up to 8 (spw).  Small shapes take R = 1 (scalar window
+//   loads), so that a C=1 block still spreads over more than 132 blocks.
+// * Tensor cores (the one-byte inputs' form, TC).  A u8 or int8 sample
+//   normalized by 2^-7 is an 8-bit integer times a power of two: exact in
+//   TF32.  So the FIR runs as mma.sync m16n8k8 TF32 products with the taps
+//   split in two, hi = tf32(h) and lo = tf32(h - hi) (2^-22 relative),
+//   each product summed in its own fp32 accumulator and the two added
+//   last.  A warp's 32*R outputs form R/4 tiles of 16 x 8: output jw +
+//   128*tile + 8*t + i is row t, column i, and per phase p
+//     Y[t, i] = sum_s X[t, s] B[s, i],  X[t, s] = sp[p, 128*tile + 8t + s],
+//     B[s, i] = hp[p, s - i] (zero outside the phase's taps),
+//   a banded (Toeplitz) B of ks = ceil((r_rows + 7) / 8) k-steps of 8.  X
+//   comes from the swizzled split with one ldmatrix.x4 a k-step (rows 8
+//   words apart: all 32 banks); B's hi and lo fragments are built once per
+//   block in fragment order, one 16-byte load a lane and k-step.  r_pad is
+//   8 * (ks - 1): the window rows past the warp's outputs.
 // * Staging that overlaps compute.  Persistent blocks walk (row, tile)
 //   work items.  Warp 0 is the producer: one thread brings each item's
 //   input span into a ring of shared-memory stages with one cp.async.bulk
 //   (the span widened to 16-byte bounds), each stage under a full and an
-//   empty mbarrier.  Each compute warp owns 32*R outputs of one arm of the
-//   item and splits its part of the staged span by phase into its own
-//   buffer (the polyphase split is done reading shared memory, four loads
-//   in flight a lane, not in global loads), releases the stage, and
-//   computes from its buffer while the producer loads the next item.  The
-//   ring depth (1-3) is the plan's: the kernel is bound by issue and
-//   latency, not by HBM, and at the paths' large shapes one stage with
-//   more blocks resident (12-24 compute warps an SM) ran 16-22% faster
-//   than two stages with fewer (PERF.md).
-// * The interleaved front-end.  The receiver's float I/Q block is read as
-//   its (C, 2, N) view (element step 2): a span holds both arms
+//   empty mbarrier.  The span is staged in its own type: the raw bytes for
+//   u8 and int8, a quarter of the float path's.  Each compute warp owns
+//   32*R outputs of one arm of the item and splits its part of the staged
+//   span by phase into its own float buffer: the deinterleave, the
+//   conversion and (u8) the exact (x - 128) * 2^-7 happen here, four loads
+//   in flight a lane; it releases the stage and computes from its buffer
+//   while the producer loads the next item.  The ring depth (1-3) is the
+//   plan's: at the paths' large shapes one stage with more blocks resident
+//   ran faster than two stages with fewer (PERF.md).
+// * The interleaved front-end.  The receiver's I/Q block (u8 or float) is
+//   read as its (C, 2, N) view (element step 2): a span holds both arms
 //   interleaved and is staged once; its two compute warps split it
-//   together, each half of the rows of both arms (pairs of floats), and
+//   together, each half of the rows of both arms (pairs of elements), and
 //   then each computes one arm.
 // * The state in the same launch: after their items, the blocks write the
-//   new state, the last K-1 samples of [state, x], into its own output
-//   (a block shorter than K-1 keeps part of the old state), so one call is
-//   one launch.
-// * The geometry (R, warps, tile, stages, shared bytes, grid) is a pure
-//   function of the shape, computed in Python (ops/fir_decim.py, plan) and
-//   passed in; the kernel checks only what would fault.  All of the SM's
-//   unified L1/shared memory goes to shared memory, so that the plan's
-//   blocks fit.
+//   new f32 state, the last K-1 samples of [state, x] converted as the
+//   FIR reads them, into its own output (a block shorter than K-1 keeps
+//   part of the old state), so one call is one launch.
+// * The geometry (R, TC, warps, tile, taps, stages, shared bytes, grid) is
+//   a pure function of the shape, computed in Python (ops/fir_decim.py,
+//   plan) and passed in; the kernel checks only what would fault.  All of
+//   the SM's unified L1/shared memory goes to shared memory, so that the
+//   plan's blocks fit.
 //
-// Summation order: each output sums by phase p = 0..D-1, then by tap q =
-// 0..r_rows-1 within the phase (the plain version sums another order:
-// within 1e-5).  The state is copied, so it is bit-equal to the plain
-// version's.
-//
-// K4 (fir_decim_i8_kernel) keeps the first design, on no path: one thread
-// block per (row, tile of outputs), one thread per output, span and taps
-// staged by polyphase in shared memory.
+// Summation order: an output's sum never depends on the plan.  The CUDA
+// cores sum by phase p = 0..D-1, then by tap q = 0..r_pad-1 within the
+// phase, for R = 8 and R = 1 alike (padded taps add exact zeros); the
+// tensor cores sum by phase, then k-step, each output at the same place of
+// its 16 x 8 tile (warps start at multiples of 128 outputs).  So a row
+// gives bit-identical output at any batch size.  The plain version sums
+// another order: within 1e-5.  The state is copied, so it is bit-equal to
+// the plain version's.
 //
 // The library is built with --fmad=false for the PLL kernels; the
-// multiply-adds here are explicit fmaf, which that flag leaves alone.
+// multiply-adds here are explicit fmaf or mma, which that flag leaves
+// alone.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -84,33 +96,67 @@
 
 namespace {
 
-// --- K5 ------------------------------------------------------------------------
-
 constexpr int kT = 4;            // taps per phase row: a multiple of 4
 constexpr int kBarBytes = 64;    // full and empty mbarriers of <= 4 stages
 constexpr int kMaxWarps = 4;     // compute warps per block
 constexpr int kMaxShared = 232448;
 constexpr int kMaxDevices = 64;
+constexpr float kScale = 0.0078125f;  // 2^-7: an 8-bit integer times it is exact
+
+// The input types: how an element of x and of the state become a float.
+struct F32In {
+  using T = float;
+  using S = float;
+  static __device__ __forceinline__ float x(float v) { return v; }
+  static __device__ __forceinline__ float s(float v) { return v; }
+};
+struct U8In {  // raw SDR bytes, state already normalized
+  using T = uint8_t;
+  using S = float;
+  static __device__ __forceinline__ float x(uint8_t v) {
+    return static_cast<float>(static_cast<int>(v) - 128) * kScale;
+  }
+  static __device__ __forceinline__ float s(float v) { return v; }
+};
+struct I8In {  // bias-flipped bytes, state as int8 too
+  using T = int8_t;
+  using S = int8_t;
+  static __device__ __forceinline__ float x(int8_t v) {
+    return static_cast<float>(v) * kScale;
+  }
+  static __device__ __forceinline__ float s(int8_t v) {
+    return static_cast<float>(v) * kScale;
+  }
+};
+
+template <class T>
+struct alignas(2 * sizeof(T)) Pair {
+  T a, b;
+};
 
 // Where a launch's data lies and how it is cut (ops/fir_decim.py: the
 // spans and the plan).  A span is one staged row of x: `lanes` arms
 // interleaved (1, or 2 for the receiver's I/Q), span s at
-// x + (s / spo) * outer_stride + (s % spo) * arm_stride; output and state
-// row s * lanes + a.
+// x + (s / spo) * outer_stride + (s % spo) * arm_stride elements; output
+// and state row s * lanes + a.  `taps`: floats of the tap table, `raw`:
+// bytes of a stage.
 struct Fir {
-  const float* x;
-  const float* state;
+  const void* x;
+  const void* state;
   float* y;
   float* new_state;
   long long outer_stride, arm_stride;
   int spans, lanes, spo, n, k, decim, n_out;
-  int tile, n_tiles, r_pad, spw, raw, stages;
+  int tile, n_tiles, r_pad, taps, spw, raw, stages;
 };
 
 __device__ __forceinline__ int swz(int m) { return m ^ (((m >> 5) & 1) << 2); }
 
-__device__ __forceinline__ const float* span_row(const Fir& f, int span) {
-  return f.x + static_cast<long long>(span / f.spo) * f.outer_stride +
+template <class In>
+__device__ __forceinline__ const typename In::T* span_row(const Fir& f,
+                                                          int span) {
+  return static_cast<const typename In::T*>(f.x) +
+         static_cast<long long>(span / f.spo) * f.outer_stride +
          static_cast<long long>(span % f.spo) * f.arm_stride;
 }
 
@@ -118,23 +164,25 @@ __device__ __forceinline__ const float* span_row(const Fir& f, int span) {
 // g_end), g_end = min((j0 + tile + r_pad) * D, n + K-1), everything the
 // item's warps split (up to r_pad outputs past the tile, so that only a
 // row's first and last items need the slow split); its x part [i_lo,
-// g_end - (K-1)) widened to 16-byte bounds.  `off`: floats from `src` to
-// x index i_lo's first float.  The widening reads up to 12 bytes before
-// a span's first float and after its last, which may lie outside x's
-// storage.  That cannot fault: the bytes added share an aligned 16-byte
-// granule with a float of x, and no page boundary splits such a granule.
-// They are never used.  Inside PyTorch's caching allocator, which rounds
-// blocks up to 512 bytes, they also stay inside x's block; a memory
-// checker that tracks allocations may report them for a tensor whose
-// storage ends on no 16-byte bound.
+// g_end - (K-1)) widened to 16-byte bounds.  `off`: elements from `src`
+// to x index i_lo's first element.  The widening reads up to 15 bytes
+// before a span's first element and after its last, which may lie outside
+// x's storage.  That cannot fault: the bytes added share an aligned
+// 16-byte granule with an element of x, and no page boundary splits such
+// a granule.  They are never used.  Inside PyTorch's caching allocator,
+// which rounds blocks up to 512 bytes, they also stay inside x's block; a
+// memory checker that tracks allocations may report them for a tensor
+// whose storage ends on no 16-byte bound.
 struct Stage {
-  const float* src;
+  const void* src;
   uint32_t bytes;
   int i_lo, off, g_end;
 };
 
+template <class In>
 __device__ __forceinline__ Stage stage_of(const Fir& f, int span, int j0) {
-  const float* row = span_row(f, span);
+  using T = typename In::T;
+  const T* row = span_row<In>(f, span);
   const int km1 = f.k - 1;
   const int i_lo = max(j0 * f.decim - km1, 0);
   const int g_end = min((j0 + f.tile + f.r_pad) * f.decim, f.n + km1);
@@ -144,21 +192,21 @@ __device__ __forceinline__ Stage stage_of(const Fir& f, int span, int j0) {
       row + static_cast<long long>(g_end - km1) * f.lanes);
   const uintptr_t a = first & ~static_cast<uintptr_t>(15);
   const uintptr_t b = (end + 15) & ~static_cast<uintptr_t>(15);
-  return {reinterpret_cast<const float*>(a), static_cast<uint32_t>(b - a),
-          i_lo, static_cast<int>((first - a) / 4), g_end};
+  return {reinterpret_cast<const void*>(a), static_cast<uint32_t>(b - a),
+          i_lo, static_cast<int>((first - a) / sizeof(T)), g_end};
 }
 
 // The polyphase split of one warp's rows: sp_a[p * spw + swz(m)] =
-// xc_a[g0 + e] for e = m * D + p in [e_lo, e_hi), lanes 32 apart, for
-// ARMS arms: one (xs at its arm), or both interleaved arms of a span (xs
-// at arm 0), read as pairs.  Past the row's end: zeros; below K-1: the
-// old state rows old_a.
-template <int ARMS>
-__device__ __forceinline__ void split_rows(const Fir& f, const Stage& st,
-                                           const float* xs, const float* old0,
-                                           const float* old1, float* sp0,
-                                           float* sp1, int g0, int e_lo,
-                                           int e_hi, int lane) {
+// xc_a[g0 + e] as a float, for e = m * D + p in [e_lo, e_hi), lanes 32
+// apart, for ARMS arms: one (xs at its arm), or both interleaved arms of
+// a span (xs at arm 0), read as pairs.  Past the row's end: zeros; below
+// K-1: the old state rows old_a.
+template <int ARMS, class In>
+__device__ __forceinline__ void split_rows(
+    const Fir& f, const Stage& st, const typename In::T* xs,
+    const typename In::S* old0, const typename In::S* old1, float* sp0,
+    float* sp1, int g0, int e_lo, int e_hi, int lane) {
+  using T = typename In::T;
   const int km1 = f.k - 1;
   const int dp = 32 % f.decim, dm = 32 / f.decim;
   int e = e_lo + lane;
@@ -167,17 +215,20 @@ __device__ __forceinline__ void split_rows(const Fir& f, const Stage& st,
     // the common case: every element lies in the staged block.  Four
     // elements a lane are loaded before any is stored, so that their
     // shared-memory latencies overlap.
-    const float* src = xs + (g0 - km1 - st.i_lo) * f.lanes;
-    const bool pairs = (reinterpret_cast<uintptr_t>(src) & 7) == 0;
+    const T* src = xs + (g0 - km1 - st.i_lo) * f.lanes;
+    const bool pairs =
+        (reinterpret_cast<uintptr_t>(src) & (2 * sizeof(T) - 1)) == 0;
     auto load = [&](int i) {
       float2 v = make_float2(0.0f, 0.0f);
       if (ARMS == 1) {
-        v.x = src[i * f.lanes];
+        v.x = In::x(src[i * f.lanes]);
       } else if (pairs) {
-        v = *reinterpret_cast<const float2*>(src + 2 * i);
+        const Pair<T> q = *reinterpret_cast<const Pair<T>*>(src + 2 * i);
+        v.x = In::x(q.a);
+        v.y = In::x(q.b);
       } else {
-        v.x = src[2 * i];
-        v.y = src[2 * i + 1];
+        v.x = In::x(src[2 * i]);
+        v.y = In::x(src[2 * i + 1]);
       }
       return v;
     };
@@ -208,12 +259,12 @@ __device__ __forceinline__ void split_rows(const Fir& f, const Stage& st,
       float v0 = 0.0f, v1 = 0.0f;
       if (g < st.g_end) {
         if (g < km1) {
-          v0 = old0[g];
-          if (ARMS == 2) v1 = old1[g];
+          v0 = In::s(old0[g]);
+          if (ARMS == 2) v1 = In::s(old1[g]);
         } else {
-          const float* q = xs + (g - km1 - st.i_lo) * f.lanes;
-          v0 = q[0];
-          if (ARMS == 2) v1 = q[1];
+          const T* q = xs + (g - km1 - st.i_lo) * f.lanes;
+          v0 = In::x(q[0]);
+          if (ARMS == 2) v1 = In::x(q[1]);
         }
       }
       const int at = p * f.spw + swz(m);
@@ -308,19 +359,91 @@ __device__ __forceinline__ void outputs(const float* sp, const float* hp,
   }
 }
 
-template <int R>
+// --- the tensor-core form ------------------------------------------------------
+
+__device__ __forceinline__ float tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+// d += a (16 x 8, rows) * b (8 x 8, columns) in TF32 with an fp32 sum
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         float b0, float b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
+        "r"(__float_as_uint(b1)));
+}
+
+// The A fragment of one k-step: four 8 x 4-float matrices, each lane
+// handing over the address of one 16-byte row.
+__device__ __forceinline__ void ldsm4(uint32_t (&a)[4], const float* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(bulk::smem_addr(row))
+      : "memory");
+}
+
+// hp[p, u]: the tap of phase p at window offset u, zero outside the filter
+__device__ __forceinline__ float phase_tap(const float* h, int km1, int decim,
+                                           int p, int u) {
+  const int t = km1 - u * decim - p;
+  return (u >= 0 && t >= 0) ? h[t] : 0.0f;
+}
+
+// acc[tile][0] (hi taps) and acc[tile][1] (lo taps) of TILES 16 x 8 tiles
+// at window row 0: lane (g, c) = (lane / 4, lane % 4) ends with rows g and
+// g + 8, columns 2c and 2c + 1 of each.  Summed by phase, then k-step.
+template <int TILES>
+__device__ __forceinline__ void outputs_tc(const float* sp, const float4* hf,
+                                           int spw, int ks, int decim,
+                                           int lane,
+                                           float (&acc)[TILES][2][4]) {
+#pragma unroll
+  for (int t = 0; t < TILES; ++t)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[t][0][v] = acc[t][1][v] = 0.0f;
+  // this lane's ldmatrix row: matrix lane / 8 is rows 0-7 or 8-15 (bit 0),
+  // floats 0-3 or 4-7 (bit 1) of the k-step
+  const int q = lane >> 3;
+  const int m_lane = 8 * ((lane & 7) + 8 * (q & 1)) + 4 * (q >> 1);
+  for (int p = 0; p < decim; ++p) {
+    const float* srow = sp + p * spw;
+    for (int kk = 0; kk < ks; ++kk) {
+      const float4 b = hf[(p * ks + kk) * 32 + lane];
+#pragma unroll
+      for (int t = 0; t < TILES; ++t) {
+        uint32_t a[4];
+        ldsm4(a, srow + swz(128 * t + m_lane + 8 * kk));
+        mma_tf32(acc[t][0], a, b.x, b.y);
+        mma_tf32(acc[t][1], a, b.z, b.w);
+      }
+    }
+  }
+}
+
+// --- the kernel ----------------------------------------------------------------
+
+template <int R, bool TC, class In>
 __global__ void __launch_bounds__(32 * (1 + kMaxWarps))
-    fir_f32_kernel(const float* __restrict__ h, const Fir f) {
+    fir_kernel(const float* __restrict__ h, const Fir f) {
+  using T = typename In::T;
+  using S = typename In::S;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + f.stages;
-  float* hp = reinterpret_cast<float*>(smem + kBarBytes);  // (D, r_pad)
-  float* ring = hp + f.decim * f.r_pad;                     // stages x raw
-  float* split = ring + f.stages * f.raw;                   // warps x D x spw
+  float* hp = reinterpret_cast<float*>(smem + kBarBytes);  // taps
+  unsigned char* ring = reinterpret_cast<unsigned char*>(hp + f.taps);
+  float* split = reinterpret_cast<float*>(ring + f.stages * f.raw);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x / 32 - 1;
   const int km1 = f.k - 1;
+  const int ks = (f.r_pad >> 3) + 1;  // TC: k-steps per phase
   if (threadIdx.x == 0) {
     for (int s = 0; s < f.stages; ++s) {
       bulk::bar_init(&full[s], 1);
@@ -328,9 +451,22 @@ __global__ void __launch_bounds__(32 * (1 + kMaxWarps))
     }
     bulk::bar_init_fence();
   }
-  for (int i = threadIdx.x; i < f.decim * f.r_pad; i += blockDim.x) {
-    const int t = km1 - (i % f.r_pad) * f.decim - i / f.r_pad;
-    hp[i] = t >= 0 ? h[t] : 0.0f;
+  if (TC) {
+    // B's fragments in their lanes' order: per (phase, k-step) and lane
+    // (g, c), the taps at window offsets 8kk + c - g and 8kk + c + 4 - g,
+    // hi and lo
+    float4* hf = reinterpret_cast<float4*>(hp);
+    for (int i = threadIdx.x; i < f.decim * ks * 32; i += blockDim.x) {
+      const int ln = i & 31, kk = (i >> 5) % ks, p = (i >> 5) / ks;
+      const int u = 8 * kk + (ln & 3) - (ln >> 2);
+      const float t0 = phase_tap(h, km1, f.decim, p, u);
+      const float t1 = phase_tap(h, km1, f.decim, p, u + 4);
+      const float h0 = tf32(t0), h1 = tf32(t1);
+      hf[i] = make_float4(h0, h1, tf32(t0 - h0), tf32(t1 - h1));
+    }
+  } else {
+    for (int i = threadIdx.x; i < f.decim * f.r_pad; i += blockDim.x)
+      hp[i] = phase_tap(h, km1, f.decim, i / f.r_pad, i % f.r_pad);
   }
   __syncthreads();
 
@@ -343,7 +479,7 @@ __global__ void __launch_bounds__(32 * (1 + kMaxWarps))
         const int s = it % f.stages;
         if (it >= f.stages) bulk::bar_wait(&empty[s], (it / f.stages - 1) & 1);
         const Stage st =
-            stage_of(f, item / f.n_tiles, (item % f.n_tiles) * f.tile);
+            stage_of<In>(f, item / f.n_tiles, (item % f.n_tiles) * f.tile);
         bulk::bar_expect(&full[s], st.bytes);
         bulk::load(ring + s * f.raw, st.src, st.bytes, &full[s]);
       }
@@ -354,6 +490,7 @@ __global__ void __launch_bounds__(32 * (1 + kMaxWarps))
     const int chunk = cw / f.lanes;
     float* sp = split + cw * f.decim * f.spw;
     const int rows_m = 32 * R + f.r_pad;  // phase rows of this warp's split
+    const S* state = static_cast<const S*>(f.state);
     int it = 0;
     for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
       const int s = it % f.stages;
@@ -365,35 +502,52 @@ __global__ void __launch_bounds__(32 * (1 + kMaxWarps))
       bulk::bar_wait(&full[s], (it / f.stages) & 1);
       if (jw < j1) {
         // split: sp[p, m] = xc[(jw + m) * D + p], zero past the row's end
-        const Stage st = stage_of(f, span, j0);
-        const float* xs = ring + s * f.raw + st.off;
-        const float* old = f.state + static_cast<long long>(row) * km1;
+        const Stage st = stage_of<In>(f, span, j0);
+        const T* xs = reinterpret_cast<const T*>(ring + s * f.raw) + st.off;
+        const S* old = state + static_cast<long long>(row) * km1;
         const int total = rows_m * f.decim;
         if (f.lanes == 1) {
-          split_rows<1>(f, st, xs, old, old, sp, sp, jw * f.decim, 0, total,
-                        lane);
+          split_rows<1, In>(f, st, xs, old, old, sp, sp, jw * f.decim, 0,
+                            total, lane);
         } else {
           // the pair splits both arms, each warp half of the rows: once
           // the partner has finished reading its buffer
           pair_sync();
           float* sp0 = sp - arm * f.decim * f.spw;
-          split_rows<2>(f, st, xs, old - arm * km1, old + (1 - arm) * km1,
-                        sp0, sp0 + f.decim * f.spw, jw * f.decim,
-                        arm * (total / 2), arm ? total : total / 2, lane);
+          split_rows<2, In>(f, st, xs, old - arm * km1, old + (1 - arm) * km1,
+                            sp0, sp0 + f.decim * f.spw, jw * f.decim,
+                            arm * (total / 2), arm ? total : total / 2, lane);
         }
       }
       __syncwarp();
       if (lane == 0) bulk::bar_arrive(&empty[s]);
       if (f.lanes == 2 && jw < j1) pair_sync();  // both halves written
       if (jw < j1) {
-        float acc[R];
-        outputs<R>(sp, hp, f.spw, f.r_pad, f.decim, lane * R, acc);
-        const int m0 = lane * R;
         float* yr = f.y + static_cast<long long>(row) * f.n_out;
+        if constexpr (TC) {
+          constexpr int kTiles = R / 4;
+          float acc[kTiles][2][4];
+          outputs_tc<kTiles>(sp, reinterpret_cast<const float4*>(hp), f.spw,
+                             ks, f.decim, lane, acc);
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-          const int j = jw + m0 + i;
-          if (j < j1) yr[j] = acc[i];
+          for (int t = 0; t < kTiles; ++t) {
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              // c_v: row g (+ 8 for v >= 2), column 2c + (v & 1)
+              const int j = jw + 128 * t + 8 * ((lane >> 2) + 8 * (v >> 1)) +
+                            2 * (lane & 3) + (v & 1);
+              if (j < j1) yr[j] = acc[t][0][v] + acc[t][1][v];
+            }
+          }
+        } else {
+          float acc[R];
+          const int m0 = lane * R;
+          outputs<R>(sp, hp, f.spw, f.r_pad, f.decim, m0, acc);
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const int j = jw + m0 + i;
+            if (j < j1) yr[j] = acc[i];
+          }
         }
       }
       __syncwarp();  // every lane has read sp before the next split
@@ -401,6 +555,7 @@ __global__ void __launch_bounds__(32 * (1 + kMaxWarps))
   }
 
   // the new state: the last K-1 samples of [state, x], row by row
+  const S* st = static_cast<const S*>(f.state);
   const int rows = f.spans * f.lanes;
   const long long total = static_cast<long long>(rows) * km1;
   const int keep = max(km1 - f.n, 0);  // old-state samples that stay
@@ -411,122 +566,98 @@ __global__ void __launch_bounds__(32 * (1 + kMaxWarps))
     const int c = static_cast<int>(i % km1);
     float v;
     if (c < keep) {
-      v = f.state[static_cast<long long>(row) * km1 + f.n + c];
+      v = In::s(st[static_cast<long long>(row) * km1 + f.n + c]);
     } else {
       const int xi = f.n - km1 + c;  // >= 0 here
-      v = span_row(f, row / f.lanes)[static_cast<long long>(xi) * f.lanes +
-                                     row % f.lanes];
+      v = In::x(span_row<In>(f, row / f.lanes)[static_cast<long long>(xi) *
+                                                   f.lanes +
+                                               row % f.lanes]);
     }
     f.new_state[i] = v;
   }
 }
 
-// --- K4 ------------------------------------------------------------------------
+using Kernel = void (*)(const float*, Fir);
 
-constexpr int kMaxTile = 256;
-constexpr size_t kSharedBytes = 48 * 1024;
-constexpr float kI8Scale = 0.0078125f;  // 2^-7: int8 times it is exact
-
-__global__ void fir_decim_i8_kernel(const int8_t* __restrict__ x,
-                                    const int8_t* __restrict__ state,
-                                    const float* __restrict__ h,
-                                    float* __restrict__ y, int arms,
-                                    long long outer_stride,
-                                    long long arm_stride, long long step,
-                                    int n, int k, int decim, int n_out,
-                                    int n_tiles, int r_rows, int rows) {
-  extern __shared__ float smem_i8[];
-  float* hp = smem_i8;               // (decim, r_rows) taps by phase
-  float* sp = hp + decim * r_rows;   // (decim, rows) input span by phase
-
-  const int b = blockIdx.x / n_tiles;
-  const int j0 = (blockIdx.x % n_tiles) * blockDim.x;
-  const int km1 = k - 1;
-  const int8_t* xr = x + (b / arms) * outer_stride + (b % arms) * arm_stride;
-  const int8_t* st = state + static_cast<size_t>(b) * km1;
-
-  for (int i = threadIdx.x; i < decim * r_rows; i += blockDim.x) {
-    const int p = i / r_rows;
-    const int t = km1 - (i % r_rows) * decim - p;
-    hp[i] = t >= 0 ? h[t] : 0.0f;
+// The instances: per input kind (0 float, 1 u8, 2 int8) the CUDA-core
+// forms R = 8 and R = 1 and, for the one-byte kinds, the tensor-core
+// forms of two tiles (R = 8) and one (R = 4) a warp.
+Kernel kernel_of(int kind, int r, bool tc) {
+  switch (kind) {
+    case 0:
+      if (tc) return nullptr;
+      return r == 8 ? fir_kernel<8, false, F32In> : r == 1 ? fir_kernel<1, false, F32In> : nullptr;
+    case 1:
+      if (tc) return r == 8 ? fir_kernel<8, true, U8In> : r == 4 ? fir_kernel<4, true, U8In> : nullptr;
+      return r == 8 ? fir_kernel<8, false, U8In> : r == 1 ? fir_kernel<1, false, U8In> : nullptr;
+    case 2:
+      if (tc) return r == 8 ? fir_kernel<8, true, I8In> : r == 4 ? fir_kernel<4, true, I8In> : nullptr;
+      return r == 8 ? fir_kernel<8, false, I8In> : r == 1 ? fir_kernel<1, false, I8In> : nullptr;
   }
-  const int g0 = j0 * decim;  // index in xc of the span's first sample
-  for (int i = threadIdx.x; i < rows * decim; i += blockDim.x) {
-    const int g = g0 + i;
-    float v = 0.0f;
-    if (g < km1) {
-      v = static_cast<float>(st[g]) * kI8Scale;
-    } else if (g - km1 < n) {
-      v = static_cast<float>(xr[static_cast<long long>(g - km1) * step]) *
-          kI8Scale;
-    }
-    sp[(i % decim) * rows + i / decim] = v;
-  }
-  __syncthreads();
-
-  const int j = j0 + threadIdx.x;
-  if (j >= n_out) return;
-  float acc = 0.0f;
-  for (int p = 0; p < decim; ++p) {
-    const float* hrow = hp + p * r_rows;
-    const float* srow = sp + p * rows + threadIdx.x;
-    for (int q = 0; q < r_rows; ++q) acc = fmaf(hrow[q], srow[q], acc);
-  }
-  y[static_cast<size_t>(b) * n_out + j] = acc;
+  return nullptr;
 }
 
-size_t shared_bytes_i8(int tile, int r_rows, int decim) {
-  return sizeof(float) * static_cast<size_t>(decim) *
-         (static_cast<size_t>(r_rows) + tile + r_rows - 1);
+int variant_of(int kind, int r, bool tc) {
+  return kind * 4 + (tc ? 2 : 0) + (r == 8 ? 0 : 1);
 }
 
 }  // namespace
 
-// K5: x float rows as struct Fir describes them, state and new_state
-// (spans * lanes, k-1), h (k) -> y (spans * lanes, n/decim).  `geometry`:
-// 19 host integers, the CUDA device, spans, lanes, spans per outer row,
-// n, k, decim, the outer and arm strides of x, then the launch plan of
-// ops/fir_decim.py (r 8 or 1, warps, tile, n_tiles, r_pad, spw, raw,
+// K5, K1, K4: x as struct Fir describes it (float, u8 or int8 elements),
+// state (spans * lanes, k-1) of float (float, u8) or int8, h (k) f32 ->
+// y (spans * lanes, n/decim) f32 and new_state (spans * lanes, k-1) f32.
+// `geometry`: 22 host integers, the CUDA device, the input kind (0 float,
+// 1 u8, 2 int8), spans, lanes, spans per outer row, n, k, decim, the outer
+// and arm strides of x in elements, then the launch plan of
+// ops/fir_decim.py (r, tc, warps, tile, n_tiles, r_pad, taps, spw, raw,
 // stages, smem, grid).  Launches on `stream`, which must belong to the
 // device; returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for what it does not take).
-extern "C" int sdr_fir_decim_f32(const float* x, const float* state,
-                                 const float* h, float* y, float* new_state,
-                                 const long long* geometry, void* stream) {
+extern "C" int sdr_fir_decim(const void* x, const void* state, const float* h,
+                             float* y, float* new_state,
+                             const long long* geometry, void* stream) {
   const int device = static_cast<int>(geometry[0]);
-  const int spans = static_cast<int>(geometry[1]);
-  const int lanes = static_cast<int>(geometry[2]);
-  const int spans_per_outer = static_cast<int>(geometry[3]);
-  const int n = static_cast<int>(geometry[4]);
-  const int k = static_cast<int>(geometry[5]);
-  const int decim = static_cast<int>(geometry[6]);
-  const long long outer_stride = geometry[7], arm_stride = geometry[8];
-  const int r = static_cast<int>(geometry[9]);
-  const int warps = static_cast<int>(geometry[10]);
-  const int tile = static_cast<int>(geometry[11]);
-  const int n_tiles = static_cast<int>(geometry[12]);
-  const int r_pad = static_cast<int>(geometry[13]);
-  const int spw = static_cast<int>(geometry[14]);
-  const int raw = static_cast<int>(geometry[15]);
-  const int stages = static_cast<int>(geometry[16]);
-  const int smem = static_cast<int>(geometry[17]);
-  const int grid = static_cast<int>(geometry[18]);
-  if (spans <= 0 || lanes < 1 || lanes > 2 || spans_per_outer <= 0 ||
-      n <= 0 || k < 2 || decim <= 0 || n % decim != 0 ||
-      (r != 1 && r != 8) || warps < lanes || warps > kMaxWarps ||
+  const int kind = static_cast<int>(geometry[1]);
+  const int spans = static_cast<int>(geometry[2]);
+  const int lanes = static_cast<int>(geometry[3]);
+  const int spans_per_outer = static_cast<int>(geometry[4]);
+  const int n = static_cast<int>(geometry[5]);
+  const int k = static_cast<int>(geometry[6]);
+  const int decim = static_cast<int>(geometry[7]);
+  const long long outer_stride = geometry[8], arm_stride = geometry[9];
+  const int r = static_cast<int>(geometry[10]);
+  const bool tc = geometry[11] != 0;
+  const int warps = static_cast<int>(geometry[12]);
+  const int tile = static_cast<int>(geometry[13]);
+  const int n_tiles = static_cast<int>(geometry[14]);
+  const int r_pad = static_cast<int>(geometry[15]);
+  const int taps = static_cast<int>(geometry[16]);
+  const int spw = static_cast<int>(geometry[17]);
+  const int raw = static_cast<int>(geometry[18]);
+  const int stages = static_cast<int>(geometry[19]);
+  const int smem = static_cast<int>(geometry[20]);
+  const int grid = static_cast<int>(geometry[21]);
+  const Kernel kernel = kernel_of(kind, r, tc);
+  const int elem = kind == 0 ? 4 : 1;
+  const int r_rows = decim > 0 ? (k + decim - 1) / decim : 0;
+  const bool taps_ok =
+      tc ? (r_pad % 8 == 0 && r_pad + 8 >= r_rows + 7 &&
+            taps == decim * (r_pad / 8 + 1) * 128)
+         : (r_pad % kT == 0 && r_pad * decim >= k && taps == decim * r_pad);
+  if (kernel == nullptr || spans <= 0 || lanes < 1 || lanes > 2 ||
+      spans_per_outer <= 0 || n <= 0 || k < 2 || decim <= 0 ||
+      n % decim != 0 || warps < lanes || warps > kMaxWarps ||
       warps % lanes != 0 || (lanes == 2 && warps != 2) ||
       tile != 32 * r * (warps / lanes) ||
       static_cast<long long>(n_tiles) * tile < n / decim ||
-      static_cast<long long>(spans) * n_tiles > INT_MAX || r_pad % kT != 0 ||
-      r_pad * decim < k || spw % 4 != 0 ||
-      spw < ((32 * r + r_pad + 7) & ~7) ||
-      raw % 4 != 0 || raw < (tile + r_pad) * decim * lanes + 8 ||
-      stages < 1 || 2 * stages * 8 > kBarBytes || smem > kMaxShared ||
-      grid <= 0)
+      static_cast<long long>(spans) * n_tiles > INT_MAX || !taps_ok ||
+      spw % 4 != 0 || spw < ((32 * r + r_pad + 7) & ~7) || raw % 16 != 0 ||
+      raw < (tile + r_pad) * decim * lanes * elem + 32 || stages < 1 ||
+      2 * stages * 8 > kBarBytes || smem > kMaxShared || grid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long floats = 1LL * decim * r_pad + 1LL * stages * raw +
-                           1LL * warps * decim * spw;
-  const long long need = kBarBytes + 4 * floats;
+  const long long need = kBarBytes +
+                         4 * (1LL * taps + 1LL * warps * decim * spw) +
+                         1LL * stages * raw;
   if (smem < need) return static_cast<int>(cudaErrorInvalidValue);
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -535,61 +666,26 @@ extern "C" int sdr_fir_decim_f32(const float* x, const float* state,
   // above 48 KB of dynamic shared memory, and all of the SM's unified
   // L1/shared memory as shared, so that the plan's blocks per SM fit: once
   // per device and variant
-  static bool opened[kMaxDevices][2];
-  if (device >= 0 && device < kMaxDevices && !opened[device][r == 8]) {
-    auto* kernel = r == 8 ? fir_f32_kernel<8> : fir_f32_kernel<1>;
+  static bool opened[kMaxDevices][12];
+  const int variant = variant_of(kind, r, tc);
+  if (device >= 0 && device < kMaxDevices && !opened[device][variant]) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
           cudaSharedmemCarveoutMaxShared);
-    opened[device][r == 8] = err == cudaSuccess;
+    opened[device][variant] = err == cudaSuccess;
   }
   if (err == cudaSuccess) {
-    const Fir f{x,     state, y,     new_state,       outer_stride, arm_stride,
-                spans, lanes, spans_per_outer, n,    k,            decim,
-                n / decim, tile, n_tiles, r_pad, spw,          raw,
-                stages};
-    const dim3 block(32 * (1 + warps));
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (r == 8) {
-      fir_f32_kernel<8><<<grid, block, smem, st>>>(h, f);
-    } else {
-      fir_f32_kernel<1><<<grid, block, smem, st>>>(h, f);
-    }
+    const Fir f{x,     state, y,      new_state, outer_stride, arm_stride,
+                spans, lanes, spans_per_outer,   n,            k,
+                decim, n / decim,     tile,      n_tiles,      r_pad,
+                taps,  spw,   raw,    stages};
+    kernel<<<grid, dim3(32 * (1 + warps)), smem,
+             static_cast<cudaStream_t>(stream)>>>(h, f);
     err = cudaGetLastError();
   }
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
-}
-
-// K4: x int8 (bias-flipped bytes) rows b at (b / arms) * outer_stride +
-// (b % arms) * arm_stride, element step `step`; state (batch, k-1) int8;
-// both scaled by 2^-7; h (k) f32 -> y (batch, n/decim) f32.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for shapes it
-// does not take).
-extern "C" int sdr_fir_decim_i8(const int8_t* x, const int8_t* state,
-                                const float* h, float* y, int batch, int arms,
-                                long long outer_stride, long long arm_stride,
-                                long long step, int n, int k, int decim,
-                                void* stream) {
-  if (batch <= 0 || arms <= 0 || n <= 0 || k <= 0 || decim <= 0 ||
-      n % decim != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int n_out = n / decim;
-  const int r_rows = (k + decim - 1) / decim;
-  int tile = kMaxTile;
-  while (tile > 32 && shared_bytes_i8(tile, r_rows, decim) > kSharedBytes)
-    tile /= 2;
-  const size_t smem = shared_bytes_i8(tile, r_rows, decim);
-  const int n_tiles = (n_out + tile - 1) / tile;
-  if (smem > kSharedBytes ||
-      static_cast<long long>(batch) * n_tiles > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  fir_decim_i8_kernel<<<batch * n_tiles, tile, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      x, state, h, y, arms, outer_stride, arm_stride, step, n, k, decim,
-      n_out, n_tiles, r_rows, tile + r_rows - 1);
-  return static_cast<int>(cudaGetLastError());
 }

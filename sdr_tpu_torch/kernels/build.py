@@ -106,14 +106,9 @@ def load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # iq, state, h, y, batch, n, k, decim, stream
-    lib.sdr_fir_frontend_u8.argtypes = [p, p, p, p, i, i, i, i, p]
-    # x, state, h, y, new_state, geometry (19 long longs:
+    # x, state, h, y, new_state, geometry (22 long longs:
     # ops/fir_decim.py _recipe), stream
-    lib.sdr_fir_decim_f32.argtypes = [p, p, p, p, p, p, p]
-    # x, state, h, y, batch, arms, outer_stride, arm_stride, step, n, k,
-    # decim, stream
-    lib.sdr_fir_decim_i8.argtypes = [p, p, p, p, i, i, q, q, q, i, i, i, p]
+    lib.sdr_fir_decim.argtypes = [p, p, p, p, p, p, p]
     # xs, carry0, consts, args, carry_out, n, lanes, ld, stream
     lib.sdr_pll_angles.argtypes = [p, p, p, p, p, i, i, i, p]
     # xs, mix, carry0, consts, mixer, carry_out, n, lanes, ld, stream
@@ -129,8 +124,7 @@ def load() -> ctypes.CDLL:
     lib.sdr_halo_shift_rows.argtypes = [i, p, i, i, i, q, q, q, q, q, p]
     # device, peer
     lib.sdr_halo_enable_peer.argtypes = [i, i]
-    for fn in (lib.sdr_fir_frontend_u8, lib.sdr_fir_decim_f32,
-               lib.sdr_fir_decim_i8, lib.sdr_pll_angles, lib.sdr_pll_mixer,
+    for fn in (lib.sdr_fir_decim, lib.sdr_pll_angles, lib.sdr_pll_mixer,
                lib.sdr_pll_chain_floor, lib.sdr_halo_shift,
                lib.sdr_halo_shift_rows, lib.sdr_halo_enable_peer):
         fn.restype = ctypes.c_int

@@ -1,4 +1,5 @@
-"""Batched decimating FIR over float input: kernel K5 and its plain version.
+"""Batched decimating FIR: kernel K5 (float input), the template it shares
+with K1 and K4, and its plain version.
 
 Port of ``sdr_tpu/ops/pallas_fir.py::fir_block_decim_pallas`` (the kernel
 ``fir_decim_pallas``).  Contract: ``x`` (..., N) float32, taps ``h`` (K,),
@@ -11,13 +12,13 @@ On a CUDA tensor :func:`fir_block_decim` launches the hand-written kernel
 on a CPU tensor it runs :func:`fir_block_decim_plain` (the banded-matmul
 FIR of ``ops.fir``).  The kernel reads ``x`` in place through its strides:
 a contiguous time axis, or the (..., 2, N) view of interleaved I/Q (element
-step 2, the receiver's float front-end, staged once for both arms); any
-other layout is copied to contiguous first.  Its geometry is
-:func:`plan`, a pure function of the shape.
+step 2, the receiver's front-end, staged once for both arms); any other
+layout is copied to contiguous first.  Its geometry is :func:`plan`, a
+pure function of the shape.
 
-The int8 instance of the same source is K4
-(``ops.fir_frontend.fir_frontend_u8_deinterleaved``), launched through
-:func:`launch_i8`.
+The same template takes one-byte input through :func:`launch`: raw u8
+I/Q (K1, ``ops.fir_frontend.fir_frontend_u8``) and bias-flipped int8 (K4,
+``ops.fir_frontend.fir_frontend_u8_deinterleaved``).
 """
 
 from __future__ import annotations
@@ -40,27 +41,32 @@ MAX_WARPS = 4                  # compute warps per block
 
 
 class FirPlan(NamedTuple):
-    """The launch geometry of K5 for one shape (:func:`plan`).
+    """The launch geometry of the FIR template for one shape (:func:`plan`).
 
     A work item is (span, tile): ``tile`` consecutive outputs of each of a
     span's ``lanes`` interleaved arms.  A block runs one producer warp and
     ``warps`` compute warps; compute warp w takes arm ``w % lanes`` and
-    outputs ``(w // lanes) * 32 * r`` .. + ``32 * r`` of the item, ``r``
-    per lane.  Blocks walk items ``block, block + grid, ...``."""
+    outputs ``(w // lanes) * 32 * r`` .. + ``32 * r`` of the item.  Blocks
+    walk items ``block, block + grid, ...``."""
 
     spans: int
     lanes: int
     n_out: int
-    r: int              # consecutive outputs per thread: 8, or 1 when small
+    r: int              # outputs per lane: 8, or 1 when small (CUDA cores);
+    #                     8 or 4, two or one 16 x 8 tiles a warp (TC)
+    tc: bool            # tensor cores (one-byte inputs), else CUDA cores
     warps: int          # compute warps per block
     tile: int           # outputs per arm and work item
     n_tiles: int        # work items per span
-    r_pad: int          # taps per phase, ceil(K/D) rounded up to TAPS_STEP
+    r_pad: int          # window rows past a warp's outputs: taps per phase,
+    #                     ceil(K/D) rounded up to TAPS_STEP (CUDA cores), or
+    #                     8 * (k-steps - 1) (TC)
+    taps: int           # floats of the tap table
     spw: int            # floats per phase row of a warp's split buffer:
     #                     its 32 * r + r_pad window rows rounded up to 8
     #                     (the swizzle permutes aligned groups of 8), then
     #                     padded for the banks
-    raw: int            # floats per stage of the staged span
+    raw: int            # bytes per stage of the staged span
     stages: int         # stages of the ring
     smem: int           # dynamic shared bytes per block
     grid: int           # persistent blocks
@@ -69,28 +75,48 @@ class FirPlan(NamedTuple):
     def items(self) -> int:
         return self.spans * self.n_tiles
 
-    def outputs(self, block: int) -> list[tuple[int, int, int]]:
-        """(output row, first output, count) of every warp and lane of
-        ``block``, item after item, as the kernel assigns them; lanes past
-        the end of a row compute nothing."""
+    def item_outputs(self, item: int) -> list[tuple[int, int, int, tuple]]:
+        """(output row, first output, count, order) of every warp and lane
+        of work item ``item``, as the kernel assigns them; lanes past the
+        end of a row compute nothing.  ``order`` is what decides the
+        summation order of those outputs: on the CUDA cores the same for
+        every output (by phase, then tap); on the tensor cores the
+        outputs' place in their 16 x 8 tile."""
         out = []
-        for item in range(block, self.items, self.grid):
-            span, j0 = divmod(item, self.n_tiles)
-            j0 *= self.tile
-            j1 = min(j0 + self.tile, self.n_out)
-            for w in range(self.warps):
-                arm, chunk = w % self.lanes, w // self.lanes
-                for lane in range(32):
-                    j = j0 + chunk * 32 * self.r + lane * self.r
+        span, j0 = divmod(item, self.n_tiles)
+        j0 *= self.tile
+        j1 = min(j0 + self.tile, self.n_out)
+        for w in range(self.warps):
+            arm, chunk = w % self.lanes, w // self.lanes
+            jw = j0 + chunk * 32 * self.r
+            row = span * self.lanes + arm
+            for lane in range(32):
+                if not self.tc:
+                    j = jw + lane * self.r
                     if j < j1:
-                        out.append((span * self.lanes + arm, j,
-                                    min(self.r, j1 - j)))
+                        out.append((row, j, min(self.r, j1 - j),
+                                    ("phase, tap", self.r_pad)))
+                    continue
+                g, c = divmod(lane, 4)
+                for t in range(self.r // 4):
+                    for half in (0, 1):
+                        at = 8 * (g + 8 * half) + 2 * c
+                        j = jw + 128 * t + at
+                        if j < j1:
+                            out.append((row, j, min(2, j1 - j),
+                                        ("tc", self.r_pad, at)))
         return out
 
+    def outputs(self, block: int) -> list[tuple[int, int, int, tuple]]:
+        """:meth:`item_outputs` of every item of ``block``, in the order the
+        block walks them."""
+        return [o for item in range(block, self.items, self.grid)
+                for o in self.item_outputs(item)]
 
-def _shared_bytes(decim: int, r_pad: int, raw: int, stages: int, warps: int,
+
+def _shared_bytes(decim: int, taps: int, raw: int, stages: int, warps: int,
                   spw: int) -> int:
-    return BAR_BYTES + 4 * (decim * r_pad + stages * raw + warps * decim * spw)
+    return BAR_BYTES + 4 * (taps + warps * decim * spw) + stages * raw
 
 
 def blocks_per_sm(p: FirPlan) -> int:
@@ -101,24 +127,31 @@ def blocks_per_sm(p: FirPlan) -> int:
 
 
 def plan(spans: int, lanes: int, n: int, k: int, decim: int,
-         sms: int = SMS) -> FirPlan:
-    """K5's geometry for ``spans`` staged rows of ``lanes`` interleaved arms
-    of ``n`` samples, ``k`` taps, decimation ``decim``, on a card of
-    ``sms`` SMs.
+         sms: int = SMS, elem: int = 4, tc: bool = False) -> FirPlan:
+    """The template's geometry for ``spans`` staged rows of ``lanes``
+    interleaved arms of ``n`` samples of ``elem`` bytes (4 float, 1 u8 or
+    int8), ``k`` taps, decimation ``decim``, on a card of ``sms`` SMs; on
+    the tensor cores when ``tc`` (one-byte inputs only).
 
-    R = 8 outputs per thread and four compute warps (two for interleaved
+    R = 8 outputs per lane and four compute warps (two for interleaved
     I/Q, one per arm, whose spans are twice as long), each 256 outputs of
-    an arm; when that gives fewer items than SMs, R = 1 and one warp per
-    arm, 32 outputs per item, so that a small block still spreads over the
-    card.  One to three stages, whichever lets the most blocks share an
-    SM.  The grid is as many blocks as fit on the card, at most one per
-    item."""
+    an arm; when that gives fewer items than SMs, one warp per arm and R =
+    1 (32 outputs per item; TC: R = 4, one 128-output tile), so that a
+    small block still spreads over the card.  One to three stages,
+    whichever lets the most blocks share an SM.  The grid is as many
+    blocks as fit on the card, at most one per item."""
     if lanes not in (1, 2) or spans < 1 or n < 1 or k < 2 or decim < 1 \
-            or n % decim:
-        raise ValueError(f"no K5 plan for spans {spans}, lanes {lanes}, n "
-                         f"{n}, k {k}, decim {decim}")
+            or n % decim or elem not in (1, 4) or (tc and elem != 1):
+        raise ValueError(f"no FIR plan for spans {spans}, lanes {lanes}, n "
+                         f"{n}, k {k}, decim {decim}, elem {elem}, tc {tc}")
     n_out = n // decim
-    r_pad = -(-(-(-k // decim)) // TAPS_STEP) * TAPS_STEP
+    r_rows = -(-k // decim)
+    if tc:
+        ks = -(-(r_rows + 7) // 8)              # k-steps of 8 per phase
+        r_pad, taps = 8 * (ks - 1), decim * ks * 128
+    else:
+        r_pad = -(-r_rows // TAPS_STEP) * TAPS_STEP
+        taps = decim * r_pad
     # phase rows of a warp's split: a row offset of 4 * ceil(8/D) words
     # mod 32 spreads the phases of one staged word run over the banks
     row_pad = (4 * -(-8 // decim)) % 32
@@ -129,23 +162,23 @@ def plan(spans: int, lanes: int, n: int, k: int, decim: int,
         n_tiles = -(-n_out // tile)
         rows_m = -(-(32 * r + r_pad) // 8) * 8
         spw = rows_m + (row_pad - rows_m) % 32
-        raw = -(-((tile + r_pad) * decim * lanes + 8) // 4) * 4
-        smem = _shared_bytes(decim, r_pad, raw, stages, warps, spw)
-        p = FirPlan(spans, lanes, n_out, r, warps, tile, n_tiles, r_pad,
-                    spw, raw, stages, smem, 0)
+        raw = -(-((tile + r_pad) * decim * lanes * elem + 32) // 16) * 16
+        smem = _shared_bytes(decim, taps, raw, stages, warps, spw)
+        p = FirPlan(spans, lanes, n_out, r, tc, warps, tile, n_tiles, r_pad,
+                    taps, spw, raw, stages, smem, 0)
         return p._replace(grid=min(p.items, blocks_per_sm(p) * sms))
 
     r, chunks = 8, (MAX_WARPS if lanes == 1 else 1)
     if spans * -(-n_out // (chunks * 32 * r)) < sms:
-        r, chunks = 1, 1
+        r, chunks = (4 if tc else 1), 1
     # of the ring depths that fit, the one that lets the most blocks share
     # an SM, the deeper on a tie: at the paths' large shapes one stage and
     # more resident blocks ran faster than two or three (PERF.md)
     shapes = [shape(r, chunks, st) for st in (3, 2, 1)]
     fits = [q for q in shapes if q.smem <= MAX_SHARED]
     if not fits:
-        raise ValueError(f"K5 needs {shapes[-1].smem} shared bytes for k "
-                         f"{k}, decim {decim}: more than {MAX_SHARED}")
+        raise ValueError(f"the FIR needs {shapes[-1].smem} shared bytes for "
+                         f"k {k}, decim {decim}: more than {MAX_SHARED}")
     return max(fits, key=lambda q: (blocks_per_sm(q), q.stages))
 
 
@@ -188,16 +221,8 @@ def _check(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
         raise ValueError("state must be contiguous")
 
 
-def _rows(x: torch.Tensor) -> torch.Tensor:
-    """x as (outer, arms, n): view() raises if the dims before the last two
-    do not collapse into one stride."""
-    if x.ndim == 1:
-        return x.view(1, 1, -1)
-    return x.view((-1,) + tuple(x.shape[-2:]))
-
-
 def _spans(x: torch.Tensor) -> tuple[int, int, int, int, int]:
-    """How K5 reads ``x`` in place: (spans, lanes, spans per outer row,
+    """How the kernel reads ``x`` in place: (spans, lanes, spans per outer row,
     outer stride, arm stride), or spans 0 when it must be copied to
     contiguous first.  Integer arithmetic on shape and strides, no view."""
     shape, st = x.shape, x.stride()
@@ -217,43 +242,63 @@ def _spans(x: torch.Tensor) -> tuple[int, int, int, int, int]:
     return 0, 0, 0, 0, 0
 
 
+#: the input kinds of the template (csrc: 0 float, 1 u8, 2 int8) and the
+#: state type each takes
+_KINDS = {torch.float32: (0, torch.float32), torch.uint8: (1, torch.float32),
+          torch.int8: (2, torch.int8)}
+
+#: which form the one-byte inputs (K1, K4) take: tensor cores, else CUDA
+#: cores
+ONE_BYTE_TC = True
+
+
 class _Recipe(NamedTuple):
-    """What one layout of K5's operands needs per call, worked out once."""
+    """What one layout of the operands needs per call, worked out once."""
 
     copy: bool                  # x must be made contiguous first
-    geometry: ctypes.Array      # the kernel's 19 integers (csrc)
+    geometry: ctypes.Array      # the kernel's 22 integers (csrc)
     y_shape: tuple
 
 
-# layout key (shapes, strides, decimation, device) -> _Recipe
+# layout key (types, shapes, strides, decimation, device, form) -> _Recipe
 _recipes: dict[tuple, _Recipe] = {}
 
 
 def _recipe(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
             decim: int) -> _Recipe:
     _check(x, h, state, decim)
+    if x.dtype not in _KINDS:
+        raise TypeError(f"the FIR kernel takes float32, uint8 or int8 input, "
+                        f"got {x.dtype}")
+    kind, state_dtype = _KINDS[x.dtype]
+    if state.dtype != state_dtype:
+        raise TypeError(f"{x.dtype} input takes a {state_dtype} state, got "
+                        f"{state.dtype}")
     copy = not _spans(x)[0]
     spans, lanes, spo, os_, as_ = _spans(x.contiguous() if copy else x)
     k, n = h.shape[0], x.shape[-1]
     device = x.get_device()
-    p = plan(spans, lanes, n, k, decim, _sms(device))
-    geometry = (ctypes.c_longlong * 19)(device, spans, lanes, spo, n, k,
+    p = plan(spans, lanes, n, k, decim, _sms(device), x.element_size(),
+             kind > 0 and ONE_BYTE_TC)
+    geometry = (ctypes.c_longlong * 22)(device, kind, spans, lanes, spo, n, k,
                                         decim, os_, as_, *p[3:])
     return _Recipe(copy, geometry, tuple(x.shape[:-1]) + (n // decim,))
 
 
-def launch_f32(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
-               decim: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K5 on CUDA tensors; returns ``(y, new_state)``.  Raises on
-    what the kernel does not take.  Counts nothing: :func:`fir_block_decim`
-    counts.
+def launch(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
+           decim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the FIR template on CUDA tensors: float32 input with a float32
+    state (K5), uint8 with a float32 u8-normalized state (K1: x - 128
+    times 2^-7), int8 with an int8 state (K4: times 2^-7).  Returns ``(y,
+    new_state)``, both float32.  Raises on what the kernel does not take.
+    Counts nothing: the public wrappers count.
 
-    The checks that follow from shapes and strides, the layout and the
-    launch plan are worked out once per layout (:func:`_recipe`); each call
-    checks the taps' type and the devices, allocates and launches."""
+    The checks that follow from types, shapes and strides, the layout and
+    the launch plan are worked out once per layout (:func:`_recipe`); each
+    call checks the taps' type and the devices, allocates and launches."""
     device = x.get_device()
-    key = (x.shape, x.stride(), state.shape, state.stride(), h.shape,
-           h.stride(), decim, device)
+    key = (x.dtype, x.shape, x.stride(), state.dtype, state.shape,
+           state.stride(), h.shape, h.stride(), decim, device, ONE_BYTE_TC)
     rec = _recipes.get(key)
     if rec is None:
         if len(_recipes) >= 256:
@@ -264,38 +309,14 @@ def launch_f32(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
         _check(x, h, state, decim)          # raises with the reason
     if rec.copy:
         x = x.contiguous()
-    y = x.new_empty(rec.y_shape)
-    new_state = torch.empty_like(state)
-    rc = build.load().sdr_fir_decim_f32(
+    y = torch.empty(rec.y_shape, dtype=torch.float32, device=x.device)
+    new_state = torch.empty(state.shape, dtype=torch.float32,
+                            device=x.device)
+    rc = build.load().sdr_fir_decim(
         x.data_ptr(), state.data_ptr(), h.data_ptr(), y.data_ptr(),
         new_state.data_ptr(), rec.geometry, build.current_stream(device))
-    build.check(rc, "sdr_fir_decim_f32")
+    build.check(rc, "sdr_fir_decim")
     return y, new_state
-
-
-def launch_i8(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
-              decim: int) -> torch.Tensor:
-    """Launch K4, the int8 instance (x and state scaled by 2^-7), on CUDA
-    tensors; returns ``y``.  Raises on what the kernel does not take.
-    Counts nothing: its public wrapper counts."""
-    if x.dtype != torch.int8 or state.dtype != torch.int8:
-        raise TypeError(f"x and state must both be int8, got {x.dtype} and "
-                        f"{state.dtype}")
-    _check(x, h, state, decim)
-    if not x.is_cuda:
-        raise ValueError("K4 launches on CUDA tensors only")
-    k, n = h.shape[0], x.shape[-1]
-    x3 = _rows(x)
-    y = torch.empty(x.shape[:-1] + (n // decim,), dtype=torch.float32,
-                    device=x.device)
-    with torch.cuda.device(x.device):
-        rc = build.load().sdr_fir_decim_i8(
-            x3.data_ptr(), state.data_ptr(), h.data_ptr(), y.data_ptr(),
-            x3.shape[0] * x3.shape[1], x3.shape[1], x3.stride(0),
-            x3.stride(1), x3.stride(2), n, k, decim,
-            torch.cuda.current_stream().cuda_stream)
-    build.check(rc, "sdr_fir_decim_i8")
-    return y
 
 
 def fir_block_decim(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
@@ -311,7 +332,7 @@ def fir_block_decim(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
     if x.dtype != torch.float32 or state.dtype != torch.float32:
         raise TypeError(f"K5 takes float32 input and state, got {x.dtype} "
                         f"and {state.dtype}")
-    out = launch_f32(x, h, state, decim)
+    out = launch(x, h, state, decim)
     fir_block_decim.launches += 1
     return out
 

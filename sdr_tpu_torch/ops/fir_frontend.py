@@ -5,16 +5,18 @@ fir_frontend_u8_pallas_int``, the receiver's u8 front-end.  K4
 (:func:`fir_frontend_u8_deinterleaved`, the port of
 ``fir_frontend_u8_pallas``) computes the same function in the JAX
 package's deinterleaved int8 form; no path of either package runs it by
-default, and it shares the kernel ``csrc/fir_decim.cu`` with K5.
+default.  Both are instances of the FIR template ``csrc/fir_decim.cu``
+that K5 also runs (``ops.fir_decim.launch``).
 
 Contract (both): interleaved uint8 ``(..., 2N)`` in, taps ``h`` (K,) and the
 stacked I/Q overlap-save state ``(..., 2, K-1)`` (f32, u8-normalized), out
 ``((..., 2, N/D) f32, (..., 2, K-1) f32 new state)``.
 
-On a CUDA tensor :func:`fir_frontend_u8` launches the hand-written kernel
-``csrc/fir_frontend_u8.cu``, which reads the raw bytes and keeps the
-deinterleaved, normalized signal out of device memory.  On a CPU tensor it
-runs :func:`fir_frontend_u8_plain`, the same function in plain PyTorch.
+On a CUDA tensor :func:`fir_frontend_u8` launches the template on the raw
+bytes, which it stages as bytes and normalizes exactly in shared memory,
+so the deinterleaved, normalized signal never reaches device memory; the
+same launch writes the new state.  On a CPU tensor it runs
+:func:`fir_frontend_u8_plain`, the same function in plain PyTorch.
 
 The kernel reads the carried state as f32 directly (the TPU kernel turns
 it back into bytes, which is exact only for a u8-normalized state), and the
@@ -25,7 +27,6 @@ from __future__ import annotations
 
 import torch
 
-from sdr_tpu_torch.kernels import build
 from sdr_tpu_torch.ops import fir, fir_decim
 
 
@@ -37,16 +38,6 @@ def normalize_u8(x: torch.Tensor) -> torch.Tensor:
 def _deinterleave(x: torch.Tensor) -> torch.Tensor:
     """(..., 2N) interleaved -> (..., 2, N)."""
     return x.reshape(x.shape[:-1] + (x.shape[-1] // 2, 2)).movedim(-1, -2)
-
-
-def _u8_tail(iq_u8: torch.Tensor, st2: torch.Tensor) -> torch.Tensor:
-    """The last K-1 samples of ``[state, normalize(block)]`` per arm, also
-    for a block shorter than K-1 (it then keeps part of the state)."""
-    km1 = st2.shape[-1]
-    n = iq_u8.shape[-1] // 2
-    take = min(n, km1)
-    block_tail = normalize_u8(_deinterleave(iq_u8[..., 2 * (n - take):]))
-    return torch.cat([st2[..., take:], block_tail], dim=-1)
 
 
 def _check(iq_u8: torch.Tensor, h: torch.Tensor, st2: torch.Tensor,
@@ -81,32 +72,18 @@ def fir_frontend_u8(iq_u8: torch.Tensor, h: torch.Tensor, st2: torch.Tensor,
                     decim: int) -> tuple[torch.Tensor, torch.Tensor]:
     """K1: the RF front-end FIR of raw u8 I/Q (see the module docstring).
 
-    A CUDA tensor launches the kernel and a CPU tensor takes the plain
-    version; any other device raises."""
+    A CUDA tensor launches the u8 instance of the FIR template on the
+    (..., 2, N) view of the interleaved bytes, one launch that also writes
+    the new state; a CPU tensor takes the plain version; any other device
+    raises."""
     if iq_u8.device.type == "cpu":
         return fir_frontend_u8_plain(iq_u8, h, st2, decim)
     if iq_u8.device.type != "cuda":
         raise RuntimeError(f"no K1 kernel for device {iq_u8.device}")
     _check(iq_u8, h, st2, decim)
-    if h.device != iq_u8.device or st2.device != iq_u8.device:
-        raise ValueError("iq, taps and state must be on one device")
-    if not (iq_u8.is_contiguous() and h.is_contiguous()
-            and st2.is_contiguous()):
-        raise ValueError("iq, taps and state must be contiguous")
-    k = h.shape[0]
-    n = iq_u8.shape[-1] // 2
-    lead = iq_u8.shape[:-1]
-    batch = iq_u8.numel() // (2 * n)
-    y = torch.empty(lead + (2, n // decim), dtype=torch.float32,
-                    device=iq_u8.device)
-    lib = build.load()
-    with torch.cuda.device(iq_u8.device):
-        rc = lib.sdr_fir_frontend_u8(
-            iq_u8.data_ptr(), st2.data_ptr(), h.data_ptr(), y.data_ptr(),
-            batch, n, k, decim, torch.cuda.current_stream().cuda_stream)
-    build.check(rc, "fir_frontend_u8")
+    out = fir_decim.launch(_deinterleave(iq_u8), h, st2, decim)
     fir_frontend_u8.launches += 1
-    return y, _u8_tail(iq_u8, st2)
+    return out
 
 
 fir_frontend_u8.launches = 0
@@ -121,8 +98,8 @@ def fir_frontend_u8_deinterleaved(iq_u8: torch.Tensor, h: torch.Tensor,
     there, the bias flip ``u8 ^ 0x80`` (two's complement u8 - 128), the
     deinterleave and ``round(st2 * 128)`` of the state (exact for a
     u8-normalized state) run outside the kernel, here in PyTorch; then the
-    int8 instance of ``csrc/fir_decim.cu`` runs the FIR with the 2^-7
-    scale, and the new state is the int8 tail over 128.  A CPU tensor takes
+    int8 instance of the FIR template runs the FIR with the 2^-7 scale and
+    writes the new f32 state.  A CPU tensor takes
     :func:`fir_frontend_u8_plain`, K1's plain version; any other device
     than CUDA raises."""
     if iq_u8.device.type == "cpu":
@@ -132,9 +109,9 @@ def fir_frontend_u8_deinterleaved(iq_u8: torch.Tensor, h: torch.Tensor,
     _check(iq_u8, h, st2, decim)
     x2 = _deinterleave((iq_u8 ^ 0x80).view(torch.int8)).contiguous()
     st_i8 = torch.round(st2 * 128.0).to(torch.int8)
-    y = fir_decim.launch_i8(x2, h, st_i8, decim)
+    out = fir_decim.launch(x2, h, st_i8, decim)
     fir_frontend_u8_deinterleaved.launches += 1
-    return y, fir_decim.tail(x2, st_i8).to(torch.float32) * (1.0 / 128.0)
+    return out
 
 
 fir_frontend_u8_deinterleaved.launches = 0

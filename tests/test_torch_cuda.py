@@ -9,8 +9,9 @@ machine, from the repository root:
 (``--noconftest``: tests/conftest.py configures JAX.)
 
 Tolerances: K1, K4 and K5 at 1e-5 (two fp32 summation orders; the
-carried tails are exact and must be equal; K5 writes its own and is held
-to ``tail()``); K2/K3 bit-equal (torch.equal
+carried tails are exact and must be equal; the kernels write their own,
+K5's held to ``tail()``), K1 and K4 also at odd tap counts and
+decimations, and row 0 of a batch bit-equal to the row alone; K2/K3 bit-equal (torch.equal
 on outputs and carries, every rounding explicit on both sides), over
 chained blocks at the main path's shapes and at ragged lane and step
 counts, and the chain floor bit-equal to K2's recurrence; the receiver on
@@ -85,13 +86,27 @@ PLL_CASES = [(1, 1920, 3), (512, 1920, 1), (8, 1920, 3), (3, 960, 3),
              (515, 960, 2), (1, 1, 3), (2, 1997, 2)]
 
 
-@pytest.mark.parametrize("c,n", [(1, 57600), (512, 57600), (2, 140)])
-def test_k1_kernel_matches_plain(dev, c, n):
-    rng = np.random.default_rng(c * n)
+def _u8_operands(rng, c: int, n: int, k: int, dev):
+    """c channels of n random I/Q byte pairs and a u8-normalized state."""
     u8 = torch.from_numpy(rng.integers(0, 256, size=(c, 2 * n),
                                        dtype=np.uint8)).to(dev)
-    st = torch.tensor(rng.integers(-128, 128, size=(c, 2, 150)) / 128.0,
+    st = torch.tensor(rng.integers(-128, 128, size=(c, 2, k - 1)) / 128.0,
                       dtype=torch.float32, device=dev)
+    return u8, st
+
+
+# the one-byte front-ends on the FIR template: K1 and K4
+U8_KERNELS = {"K1": fir_frontend.fir_frontend_u8,
+              "K4": fir_frontend.fir_frontend_u8_deinterleaved}
+
+
+@pytest.mark.parametrize("c,n", [(1, 57600), (2, 57600), (7, 57600),
+                                 (512, 57600), (2, 140)])
+def test_k1_kernel_matches_plain(dev, c, n):
+    """The main path's block at C = 1, 2, 7, 512, and a block shorter than
+    K-1 (the state keeps part of the old one)."""
+    rng = np.random.default_rng(c * n)
+    u8, st = _u8_operands(rng, c, n, 151, dev)
     h = torch.tensor(gfilt.lowpass_taps(151, MC.rf_fs, cfg.RF_FC_HZ),
                      dtype=torch.float32, device=dev)
     before = fir_frontend.fir_frontend_u8.launches
@@ -101,6 +116,47 @@ def test_k1_kernel_matches_plain(dev, c, n):
     assert fir_frontend.fir_frontend_u8.launches == before + 1
     _close(yk, yp, K1_ATOL)
     assert torch.equal(sk, sp)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+@pytest.mark.parametrize("k,decim", [(31, 10), (125, 3), (151, 8),
+                                     (151, 10)])
+def test_u8_kernels_at_odd_shapes(dev, kernel, k, decim):
+    """K1 and K4 at tap counts and decimations off the main path (K=31 at
+    D=10, K=125 at D=3, D=8), C = 1 and 64, over 2 chained blocks, the
+    second shorter than K-1, each side carrying its own state: within
+    K1_ATOL, states equal."""
+    fn = U8_KERNELS[kernel]
+    h = torch.tensor(gfilt.lowpass_taps(k, decim * 240e3, 100e3),
+                     dtype=torch.float32, device=dev)
+    for c in (1, 64):
+        rng = np.random.default_rng(k * c + decim)
+        _, sk = _u8_operands(rng, c, 1, k, dev)
+        sp = sk
+        for n in (decim * 5_760, decim * 7):
+            u8, _ = _u8_operands(rng, c, n, k, dev)
+            yk, sk = fn(u8, h, sk, decim)
+            yp, sp = fir_frontend.fir_frontend_u8_plain(u8, h, sp, decim)
+            torch.cuda.synchronize()
+            _close(yk, yp, K1_ATOL)
+            assert torch.equal(sk, sp)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+def test_u8_kernels_row_is_batch_invariant(dev, kernel):
+    """Row 0 of a C=512 and a C=4 batch gives bit-identical output and state
+    to the same row alone (C=1), though the plans differ: an output's
+    summation order does not depend on the plan."""
+    fn = U8_KERNELS[kernel]
+    rng = np.random.default_rng(512)
+    u8, st = _u8_operands(rng, 512, 57600, 151, dev)
+    h = torch.tensor(gfilt.lowpass_taps(151, MC.rf_fs, cfg.RF_FC_HZ),
+                     dtype=torch.float32, device=dev)
+    y1, s1 = fn(u8[:1].clone(), h, st[:1].clone(), 10)
+    for c in (4, 512):
+        yc, sc = fn(u8[:c].clone(), h, st[:c].clone(), 10)
+        torch.cuda.synchronize()
+        assert torch.equal(yc[:1], y1) and torch.equal(sc[:1], s1), c
 
 
 @pytest.mark.parametrize("decim", [3, 4, 5, 8, 10])
@@ -184,13 +240,11 @@ def test_k5_kernel_at_odd_tap_counts(dev, k, decim, c, layout):
         sk = nk
 
 
-@pytest.mark.parametrize("c,n", [(1, 57600), (512, 57600), (2, 140)])
+@pytest.mark.parametrize("c,n", [(1, 57600), (2, 57600), (7, 57600),
+                                 (512, 57600), (2, 140)])
 def test_k4_kernel_matches_plain(dev, c, n):
     rng = np.random.default_rng(c + n)
-    u8 = torch.from_numpy(rng.integers(0, 256, size=(c, 2 * n),
-                                       dtype=np.uint8)).to(dev)
-    st = torch.tensor(rng.integers(-128, 128, size=(c, 2, 150)) / 128.0,
-                      dtype=torch.float32, device=dev)
+    u8, st = _u8_operands(rng, c, n, 151, dev)
     h = torch.tensor(gfilt.lowpass_taps(151, MC.rf_fs, cfg.RF_FC_HZ),
                      dtype=torch.float32, device=dev)
     before = fir_frontend.fir_frontend_u8_deinterleaved.launches

@@ -1,4 +1,4 @@
-"""What surrounds the K5 and K6 kernels, checked on the CPU.
+"""What surrounds the FIR template (K5, K1, K4) and K6, checked on the CPU.
 
 The CUDA kernels run only on the card (tests/test_torch_cuda.py); their
 geometry and layouts are Python, and are held here:
@@ -10,6 +10,11 @@ geometry and layouts are Python, and are held here:
   the outputs allow it, the staged span of every work item fits its
   stage, and for every tap count and decimation the swizzled window rows
   of a phase stay inside its row of the split buffer;
+* the same for the template's one-byte instances, K1 (u8, interleaved
+  I/Q: two lanes) and K4 (int8, deinterleaved: one lane), whose spans are
+  staged as bytes; and the summation order of every output of a row is
+  the same under the plans of C=1, C=4 and C=512, so that a row's output
+  does not depend on the batch;
 * K6's row-block description (``parallel.halo.RowBlocks``) of a
   ``time_sharded_receive``-style (T, S, rows, L) tensor gives the same
   source and destination addresses as the per-shard slices; layouts that
@@ -37,7 +42,7 @@ def _covered(p: fir_decim.FirPlan) -> np.ndarray:
     """How often each (row, output) is computed under plan ``p``."""
     hits = np.zeros((p.spans * p.lanes, p.n_out), np.int32)
     for block in range(p.grid):
-        for row, j, count in p.outputs(block):
+        for row, j, count, _ in p.outputs(block):
             hits[row, j:j + count] += 1
     return hits
 
@@ -65,7 +70,7 @@ def test_k5_plan_fits_and_fills_the_card(decim, k, c, lanes, n):
     spans = c if lanes == 2 else 2 * c
     p = fir_decim.plan(spans, lanes, n, k, decim, SMS)
     assert p.smem <= fir_decim.MAX_SHARED
-    assert p.smem == fir_decim._shared_bytes(decim, p.r_pad, p.raw, p.stages,
+    assert p.smem == fir_decim._shared_bytes(decim, p.taps, p.raw, p.stages,
                                              p.warps, p.spw)
     # the blocks that share an SM, and the grid
     assert p.stages in (1, 2, 3)
@@ -78,8 +83,8 @@ def test_k5_plan_fits_and_fills_the_card(decim, k, c, lanes, n):
     # taps, window rows and a stage's span, as the kernel reads them
     assert p.r_pad % fir_decim.TAPS_STEP == 0 and p.r_pad * decim >= k
     assert p.spw % 4 == 0 and p.spw >= 32 * p.r + p.r_pad
-    assert p.raw % 4 == 0
-    assert p.raw >= (p.tile + p.r_pad) * decim * lanes + 8
+    assert p.raw % 16 == 0
+    assert p.raw >= (p.tile + p.r_pad) * decim * lanes * 4 + 32
     assert p.tile == 32 * p.r * (p.warps // lanes)
 
 
@@ -124,6 +129,115 @@ def test_k5_plan_refuses_what_the_kernel_does_not_take():
         fir_decim.plan(1, 3, 100, 151, 10)
     with pytest.raises(ValueError):
         fir_decim.plan(1, 1, 105, 151, 10)
+
+
+# --- the one-byte instances: K1 (u8) and K4 (int8) -------------------------
+
+# the layout each takes: K1 the interleaved bytes (two lanes, a span per
+# channel), K4 the deinterleaved int8 stack (one lane, a span per arm)
+ONE_BYTE = {"u8": 2, "int8": 1}
+
+
+def _one_byte_plan(dtype: str, c: int, n: int, k: int, decim: int
+                   ) -> fir_decim.FirPlan:
+    """The plan the wrapper makes for ``c`` channels of ``n`` I/Q pairs."""
+    lanes = ONE_BYTE[dtype]
+    return fir_decim.plan(c * (3 - lanes), lanes, n, k, decim, SMS, 1,
+                          fir_decim.ONE_BYTE_TC)
+
+
+@pytest.mark.parametrize("dtype", ["u8", "int8"])
+@pytest.mark.parametrize("decim", [3, 10])
+@pytest.mark.parametrize("c", [1, 7, 64])
+def test_one_byte_plan_covers_every_output_once(dtype, decim, c):
+    """Ragged blocks and a block shorter than K-1, at C = 1, 7 (the small
+    plan) and 64 (the large one)."""
+    for n_out in (5_767, 150 // decim - 3, 1):
+        p = _one_byte_plan(dtype, c, n_out * decim, 151, decim)
+        assert (_covered(p) == 1).all(), (n_out, p)
+
+
+@pytest.mark.parametrize("dtype", ["u8", "int8"])
+@pytest.mark.parametrize("k,decim", [(151, 10), (151, 8), (125, 3),
+                                     (31, 10)])
+@pytest.mark.parametrize("c,n", [(1, 57_600), (4, 57_600), (512, 57_600),
+                                 (3, 140)])
+def test_one_byte_plan_fits_and_fills_the_card(dtype, k, decim, c, n):
+    """Shared bytes within a block's, the grid, and a stage holding the
+    item's span of bytes."""
+    n -= n % decim
+    p = _one_byte_plan(dtype, c, n, k, decim)
+    assert p.smem <= fir_decim.MAX_SHARED
+    assert p.smem == fir_decim._shared_bytes(decim, p.taps, p.raw, p.stages,
+                                             p.warps, p.spw)
+    per_sm = fir_decim.blocks_per_sm(p)
+    assert per_sm * (p.smem + 1024) <= fir_decim.SM_SHARED
+    assert p.grid == min(p.items, per_sm * SMS)
+    assert p.raw % 16 == 0
+    assert p.raw >= (p.tile + p.r_pad) * decim * p.lanes + 32
+    r_rows = -(-k // decim)
+    if p.tc:
+        # k-steps of 8 cover a phase's taps under every column of a tile
+        assert p.r_pad % 8 == 0 and p.r_pad + 8 >= r_rows + 7
+        assert p.taps == decim * (p.r_pad // 8 + 1) * 128
+    else:
+        assert p.r_pad % fir_decim.TAPS_STEP == 0 and p.r_pad >= r_rows
+        assert p.taps == decim * p.r_pad
+    assert p.spw % 4 == 0 and p.spw >= 32 * p.r + p.r_pad
+
+
+@pytest.mark.parametrize("dtype", ["u8", "int8"])
+def test_one_byte_plan_spreads_a_single_channel(dtype):
+    """At C=1 (``receive()`` and the CLI) the mode-0 block of K=151, D=10
+    spreads over more work items than one per 128 outputs of an arm's
+    5,760, and the large shapes keep two-tile (R = 8) warps."""
+    small = _one_byte_plan(dtype, 1, 57_600, 151, 10)
+    big = _one_byte_plan(dtype, 512, 57_600, 151, 10)
+    assert big.r == 8 and big.grid >= SMS
+    assert small.r < 8
+    assert small.items >= -(-5_760 // 128) * (3 - small.lanes)
+    if not small.tc:
+        assert small.items > SMS
+
+
+@pytest.mark.parametrize("dtype", ["u8", "int8"])
+@pytest.mark.parametrize("decim", range(2, 21))
+def test_one_byte_swizzled_rows_stay_in_their_phase_row(dtype, decim):
+    """For K = 2..400, at C=1 and C=64, every window row a warp splits and
+    reads lies below its phase row's length."""
+    for k in range(2, 401):
+        for c in (1, 64):
+            p = _one_byte_plan(dtype, c, decim * 5_760, k, decim)
+            rows = 32 * p.r + p.r_pad
+            assert _swizzled(np.arange(rows)).max() < p.spw, (k, p)
+            assert -(-rows // 8) * 8 <= p.spw, (k, p)
+
+
+def _row0_order(p: fir_decim.FirPlan) -> dict:
+    """output j of row 0 -> what decides its summation order under ``p``."""
+    got = {}
+    for item in range(p.n_tiles):               # span 0's items
+        for row, j, count, order in p.item_outputs(item):
+            if row == 0:
+                for i in range(count):
+                    got[j + i] = order
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["f32", "u8", "int8"])
+def test_summation_order_does_not_depend_on_the_plan(dtype):
+    """Every output of row 0 sums in the same order under the plans of
+    C=1, C=4 and C=512 (R and grid differ), which is what makes row 0 of
+    a batch bit-identical to the row alone on the card."""
+    k, decim, n = 151, 10, 57_600
+    if dtype == "f32":
+        plans = [fir_decim.plan(c, 2, n, k, decim) for c in (1, 4, 512)]
+    else:
+        plans = [_one_byte_plan(dtype, c, n, k, decim) for c in (1, 4, 512)]
+    assert len({p.r for p in plans}) > 1
+    orders = [_row0_order(p) for p in plans]
+    assert sorted(orders[0]) == list(range(n // decim))
+    assert orders[0] == orders[1] == orders[2]
 
 
 # --- K6: row blocks -----------------------------------------------------------

@@ -245,7 +245,6 @@ class TestBuild:
         assert p == build.library_path()
         assert p.parent.parent == build.BUILD_ROOT
         assert {s.name for s in build._sources()} == {"fir_decim.cu",
-                                                      "fir_frontend_u8.cu",
                                                       "halo.cu", "pll.cu"}
 
     def test_check_raises_on_error_code(self):
