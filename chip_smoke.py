@@ -10,7 +10,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
 1. card and build: requires CUDA, prints the card's name and power limit,
    and builds the CUDA kernels from ``sdr_tpu_torch/csrc`` with nvcc;
 2. kernels against their plain PyTorch versions at the paths' shapes:
-   K1 ``fir_frontend_u8`` (C=1, C=512, a short block, a 4-block chain),
+   K1 ``fir_frontend_u8`` (C=1, C=7, C=512, a short block, a 4-block
+   chain; row 0 of C=512 bit-equal to the row alone and at C=4),
    K2 ``pll_angles`` and K3 ``pll_mixer`` bit-equal (C=1 x 2 arms over 3
    chained blocks, C=512 x 2 arms, the time-sharded step's 16 lanes, and
    ragged lane and step counts), the chain floor against K2's recurrence,
@@ -18,7 +19,7 @@ Phases, one line of output each (any failure raises and exits non-zero):
    at C=1 and C=512, the channelizer's FIR at C=2 and C=64 with D=4 and
    D=8, a block shorter than K-1, a 3-block chain on the kernel's own
    states; states bit-equal to ``tail()``), K4 ``fir_decim_i8`` (C=1,
-   C=512, a short block), K6 ``halo_shift_right`` bit-equal: its
+   C=7, C=512, a short block), K6 ``halo_shift_right`` bit-equal: its
    row-block entry (S=8 shards as row blocks of one tensor with C=1 and
    C=4 rows at mode 0's RDS halo, a 2 x 4 grid) and its table entry (the
    tensor at an odd halo, a 2 x 4 grid handed over as views of one
@@ -42,11 +43,12 @@ Phases, one line of output each (any failure raises and exits non-zero):
 4. timing with CUDA events: block time and IQ rate at C=1 and C=512, the
    wideband block (channelizer + receiver) at C=2 and C=64, each kernel
    against its plain version, its bound and, where one PyTorch call
-   computes the same function, that call (K5: ``conv1d`` at stride D; K6:
-   one ``copy_``), K5 and K6 also as their kernels' device time under
-   ``torch.profiler`` (K6 with L2 flushed before each launch); the PLL
-   chain floor and K2/K3 at 2, 16 and 1,024 lanes; and a 60 s capture time-sharded at S = 1, 2, 4, 8 on the card
-   against its contiguous run (host clock).
+   computes the same function, that call (K1, K4, K5: ``conv1d`` at stride
+   D; K6: one ``copy_``), K1, K4, K5 and K6 also as their kernels' device
+   time under ``torch.profiler`` (K6 with L2 flushed before each launch);
+   the PLL chain floor and K2/K3 at 2, 16 and 1,024 lanes; and a 60 s
+   capture time-sharded at S = 1, 2, 4, 8 on the card against its
+   contiguous run (host clock).
 
 A kernel's bound is the larger of its bytes over 3.35 TB/s and its fp32
 operations over 67 TFLOP/s (the H100 SXM's published peaks), and for the
@@ -111,7 +113,7 @@ PLL_STEP_OPS = {"pll_angles": 12, "pll_mixer": 12 + 2 + 20 + 2}
 
 KERNELS = {
     "fir_frontend_u8": dict(
-        route="cuda", source="sdr_tpu_torch/csrc/fir_frontend_u8.cu",
+        route="cuda", source="sdr_tpu_torch/csrc/fir_decim.cu",
         replaces="sdr_tpu/ops/pallas_fir_mxu.py:284",
         counter=fir_frontend.fir_frontend_u8),
     "pll_angles": dict(
@@ -218,13 +220,14 @@ def _u8_case(rng, c: int, n: int, k: int):
 
 def check_k1(h: torch.Tensor, rng) -> dict:
     """K1 against its plain version: outputs within K1_ATOL, states
-    exactly equal."""
+    exactly equal; and row 0 of the C=512 batch bit-equal (torch.equal,
+    output and state) to the same row run alone and in a C=4 batch."""
     mc = cfg.get_mode_config(MODE)
     n_block = mc.default_block_size(True) // 2          # 57,600 I/Q pairs
     k, d = h.shape[0], mc.rf_decim
     worst, shapes = 0.0, {}
-    for name, c, n in (("C=1", 1, n_block), ("C=512", 512, n_block),
-                       ("short N=140", 2, 140)):
+    for name, c, n in (("C=1", 1, n_block), ("C=7", 7, n_block),
+                       ("C=512", 512, n_block), ("short N=140", 2, 140)):
         iq, st = _u8_case(rng, c, n, k)
         yk, sk = fir_frontend.fir_frontend_u8(iq, h, st, d)
         yp, sp = fir_frontend.fir_frontend_u8_plain(iq, h, st, d)
@@ -235,6 +238,15 @@ def check_k1(h: torch.Tensor, rng) -> dict:
                                  f"or state mismatch")
         worst = max(worst, err)
         shapes[name] = (iq, st)
+        if c == 512:
+            for rows in (1, 4):
+                yr, sr = fir_frontend.fir_frontend_u8(
+                    iq[:rows].clone(), h, st[:rows].clone(), d)
+                torch.cuda.synchronize()
+                if not (torch.equal(yr[:1], yk[:1])
+                        and torch.equal(sr[:1], sk[:1])):
+                    raise AssertionError(f"K1: row 0 at C={rows} is not "
+                                         "bit-equal to row 0 at C=512")
     # a 4-block chain, each side carrying its own state
     iq, st = _u8_case(rng, 2, 4 * 5760, k)
     sk = sp = st
@@ -247,8 +259,9 @@ def check_k1(h: torch.Tensor, rng) -> dict:
             raise AssertionError(f"K1 chain block {b}: max err {err:.3g} or "
                                  "state mismatch")
         worst = max(worst, err)
-    print(f"K1 fir_frontend_u8 vs plain: C=1, C=512, short block, 4-block "
-          f"chain: max abs err {worst:.3g} (atol {K1_ATOL}), states equal")
+    print(f"K1 fir_frontend_u8 vs plain: C=1, C=7, C=512, short block, "
+          f"4-block chain: max abs err {worst:.3g} (atol {K1_ATOL}), states "
+          "equal; row 0 of C=512 bit-equal to C=1 and C=4 (torch.equal)")
     return {"max_abs_err": worst, "cases": shapes}
 
 
@@ -415,15 +428,15 @@ def check_k5(h_rf: torch.Tensor, rng) -> dict:
 
 
 def check_k4(h: torch.Tensor, rng) -> dict:
-    """K4 against K1's plain version: C=1, C=512 and a short block.  No
-    path runs K4, so these are its launches."""
+    """K4 against K1's plain version: C=1, C=7, C=512 and a short block.
+    No path runs K4, so these are its launches."""
     mc = cfg.get_mode_config(MODE)
     n_block = mc.default_block_size(True) // 2
     k4 = fir_frontend.fir_frontend_u8_deinterleaved
     k4.launches = 0
     worst, cases = 0.0, {}
-    for name, c, n in (("C=1", 1, n_block), ("C=512", 512, n_block),
-                       ("short N=140", 2, 140)):
+    for name, c, n in (("C=1", 1, n_block), ("C=7", 7, n_block),
+                       ("C=512", 512, n_block), ("short N=140", 2, 140)):
         iq, st = _u8_case(rng, c, n, h.shape[0])
         yk, sk = k4(iq, h, st, mc.rf_decim)
         yp, sp = fir_frontend.fir_frontend_u8_plain(iq, h, st, mc.rf_decim)
@@ -435,8 +448,9 @@ def check_k4(h: torch.Tensor, rng) -> dict:
         worst = max(worst, err)
         cases[name] = (iq, st)
     launches = k4.launches
-    print(f"K4 fir_decim_i8 vs plain: C=1, C=512, short block: max abs err "
-          f"{worst:.3g} (atol {K1_ATOL}), states equal; {launches} launches")
+    print(f"K4 fir_decim_i8 vs plain: C=1, C=7, C=512, short block: max abs "
+          f"err {worst:.3g} (atol {K1_ATOL}), states equal; {launches} "
+          "launches")
     return {"max_abs_err": worst, "cases": cases, "launches": launches,
             "calls": len(cases)}
 
@@ -935,6 +949,21 @@ def _conv1d_ms(x: torch.Tensor, h: torch.Tensor, st: torch.Tensor,
     return ms, max_err(conv().reshape(y.shape), y)
 
 
+def _u8_conv1d_ms(iq: torch.Tensor, h: torch.Tensor, st: torch.Tensor,
+                  d: int) -> tuple[float, float]:
+    """The library yardstick of K1 and K4: ``conv1d`` at stride ``d`` over
+    each arm's normalized, deinterleaved [state | block] (made outside the
+    timing), TF32 off.  Returns (ms, max abs difference from K1)."""
+    c = iq.shape[0]
+    x2 = fir_frontend.normalize_u8(iq.reshape(c, -1, 2).movedim(-1, -2))
+    inp = torch.cat([st, x2], dim=-1).reshape(2 * c, 1, -1).contiguous()
+    w = h.flip(0).reshape(1, 1, -1).contiguous()
+    conv = lambda: torch.nn.functional.conv1d(inp, w, stride=d)
+    ms = cuda_ms(conv, 20)
+    y, _ = fir_frontend.fir_frontend_u8(iq, h, st, d)
+    return ms, max_err(conv().reshape(y.shape), y)
+
+
 def _time_pll(smi: str, rng, kind: str, c: int, reps: int,
               floor_ms: float) -> float:
     """One 5,760-step block of K2 or K3 at c channels x 2 arms, beside its
@@ -990,23 +1019,33 @@ def phase_timing(smi: str, k1: dict, pll: dict, k4: dict, k5: dict,
               + (f"{library_ms:.4f} ms" if library_ms is not None
                  else "none"))
 
-    for key, label, kernel, cases in (
+    # K1 and K4: the call, the kernel alone (device time under
+    # torch.profiler), the plain version and conv1d, at C=1 and C=512; the
+    # JSON line keeps C=512
+    for key, label, kernel, cases, match in (
             ("fir_frontend_u8", "K1 fir_frontend_u8",
-             fir_frontend.fir_frontend_u8, k1),
+             fir_frontend.fir_frontend_u8, k1, "U8In"),
             ("fir_decim_i8", "K4 fir_decim_i8",
-             fir_frontend.fir_frontend_u8_deinterleaved, k4)):
+             fir_frontend.fir_frontend_u8_deinterleaved, k4, "I8In")):
         for name in ("C=1", "C=512"):
             iq, st = cases["cases"][name]
-            kms = cuda_ms(lambda: kernel(iq, h, st, 10), 50)
+            call = lambda: kernel(iq, h, st, 10)
+            kms = cuda_ms(call, 50)
+            dms = device_ms(call, 10, match)
             pms = cuda_ms(lambda: fir_frontend.fir_frontend_u8_plain(
                 iq, h, st, 10), 20)
+            lib_ms, lib_err = _u8_conv1d_ms(iq, h, st, 10)
             n_out = iq.shape[0] * 2 * (iq.shape[1] // 2 // 10)
             work = _fir_work(iq.numel(), 1, n_out, h.shape[0], st.numel())
             bound, _, bkind, _ = _bound(*work)
-            print(f"timing [{smi}]: {label} {name}: kernel {kms:.4f} ms, "
-                  f"plain {pms:.4f} ms; bound {bound:.4f} ms ({bkind}), "
-                  f"{bound / kms:.1%} of it")
-        record(key, kms, pms, *work)
+            print(f"timing [{smi}]: {label} {name}: call {kms:.4f} ms "
+                  f"(kernel alone {dms:.4f} ms), plain {pms:.4f} ms, conv1d "
+                  f"{lib_ms:.4f} ms (max abs diff {lib_err:.3g}); bound "
+                  f"{bound:.4f} ms ({bkind}), {bound / kms:.1%} of it "
+                  f"(kernel alone {bound / dms:.1%}); "
+                  f"{'no slower than' if kms <= lib_ms else 'SLOWER than'} "
+                  "conv1d")
+        record(key, kms, pms, *work, library_ms=lib_ms)
 
     # the PLLs: the serial floor first, then each kernel at its shapes
     c0, consts, n = pll["floor"]
@@ -1037,7 +1076,7 @@ def phase_timing(smi: str, k1: dict, pll: dict, k4: dict, k5: dict,
     for name, (x, hk, st, d) in k5["cases"].items():
         k5_call = lambda: fir_decim.fir_block_decim(x, hk, st, d)
         kms = cuda_ms(k5_call, 20)
-        dms = device_ms(k5_call, 10, "fir_f32")
+        dms = device_ms(k5_call, 10, "F32In")
         pms = cuda_ms(lambda: fir_decim.fir_block_decim_plain(x, hk, st, d),
                       10)
         lib_ms, lib_err = _conv1d_ms(x, hk, st, d)

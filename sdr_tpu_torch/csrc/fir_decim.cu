@@ -147,7 +147,7 @@ struct Fir {
   float* new_state;
   long long outer_stride, arm_stride;
   int spans, lanes, spo, n, k, decim, n_out;
-  int tile, n_tiles, r_pad, taps, spw, raw, stages;
+  int tile, n_tiles, r_pad, taps, spw, raw, stages, flags;
 };
 
 __device__ __forceinline__ int swz(int m) { return m ^ (((m >> 5) & 1) << 2); }
@@ -275,6 +275,63 @@ __device__ __forceinline__ void split_rows(
       if (p >= f.decim) {
         p -= f.decim;
         ++m;
+      }
+    }
+  }
+}
+
+// One-byte inputs, when every element of the warp's rows lies in the
+// staged block: the split by window rows.  A unit is (phase p, chunk c of
+// 32 rows); lane l takes row m = 32c + l, whose element lies at xc index
+// m*D + p, so a lane loads its byte (a pair of bytes: both arms) and
+// stores one word per arm, and the 32 rows of a chunk are 32 consecutive
+// words of the phase row, which the swizzle permutes within their group
+// (no bank conflict).  Units u0, u0 + ustep, ...; four a lane in flight.
+template <int ARMS, class In>
+__device__ __forceinline__ void split_by_rows(const Fir& f,
+                                              const typename In::T* src,
+                                              float* sp0, float* sp1,
+                                              int rows_m, int u0, int ustep,
+                                              int lane) {
+  using T = typename In::T;
+  const int chunks = (rows_m + 31) >> 5;
+  const int units = chunks * f.decim;
+  const bool pairs =
+      (reinterpret_cast<uintptr_t>(src) & (2 * sizeof(T) - 1)) == 0;
+  const int pstep = ustep / chunks, cstep = ustep % chunks;
+  int p = u0 / chunks, c = u0 % chunks;
+  for (int u = u0; u < units;) {
+    float2 v[4];
+    int at[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = 32 * c + lane;
+      at[i] = -1;
+      if (u < units && m < rows_m) {
+        at[i] = p * f.spw + 32 * c + (lane ^ ((c & 1) << 2));
+        const T* q = src + (m * f.decim + p) * f.lanes;
+        if (ARMS == 1) {
+          v[i].x = In::x(q[0]);
+        } else if (pairs) {
+          const Pair<T> w = *reinterpret_cast<const Pair<T>*>(q);
+          v[i] = make_float2(In::x(w.a), In::x(w.b));
+        } else {
+          v[i] = make_float2(In::x(q[0]), In::x(q[1]));
+        }
+      }
+      u += ustep;
+      p += pstep;
+      c += cstep;
+      if (c >= chunks) {
+        c -= chunks;
+        ++p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (at[i] >= 0) {
+        sp0[at[i]] = v[i].x;
+        if (ARMS == 2) sp1[at[i]] = v[i].y;
       }
     }
   }
@@ -506,23 +563,34 @@ __global__ void __launch_bounds__(32 * (1 + kMaxWarps))
         const T* xs = reinterpret_cast<const T*>(ring + s * f.raw) + st.off;
         const S* old = state + static_cast<long long>(row) * km1;
         const int total = rows_m * f.decim;
-        if (f.lanes == 1) {
-          split_rows<1, In>(f, st, xs, old, old, sp, sp, jw * f.decim, 0,
-                            total, lane);
+        const int g0 = jw * f.decim;
+        // the pair splits both arms: once the partner has finished reading
+        // its buffer
+        if (f.lanes == 2) pair_sync();
+        float* sp0 = sp - arm * f.decim * f.spw;
+        if (f.flags & 2) {
+        } else if (sizeof(T) == 1 && (f.flags & 4) && g0 >= km1 &&
+                   g0 + total <= st.g_end) {
+          const T* src = xs + (g0 - km1 - st.i_lo) * f.lanes;
+          if (f.lanes == 1) {
+            split_by_rows<1, In>(f, src, sp, sp, rows_m, 0, 1, lane);
+          } else {
+            split_by_rows<2, In>(f, src, sp0, sp0 + f.decim * f.spw, rows_m,
+                                 arm, 2, lane);
+          }
+        } else if (f.lanes == 1) {
+          split_rows<1, In>(f, st, xs, old, old, sp, sp, g0, 0, total, lane);
         } else {
-          // the pair splits both arms, each warp half of the rows: once
-          // the partner has finished reading its buffer
-          pair_sync();
-          float* sp0 = sp - arm * f.decim * f.spw;
+          // each warp half of the rows
           split_rows<2, In>(f, st, xs, old - arm * km1, old + (1 - arm) * km1,
-                            sp0, sp0 + f.decim * f.spw, jw * f.decim,
+                            sp0, sp0 + f.decim * f.spw, g0,
                             arm * (total / 2), arm ? total : total / 2, lane);
         }
       }
       __syncwarp();
       if (lane == 0) bulk::bar_arrive(&empty[s]);
       if (f.lanes == 2 && jw < j1) pair_sync();  // both halves written
-      if (jw < j1) {
+      if (jw < j1 && !(f.flags & 1)) {
         float* yr = f.y + static_cast<long long>(row) * f.n_out;
         if constexpr (TC) {
           constexpr int kTiles = R / 4;
@@ -616,6 +684,7 @@ int variant_of(int kind, int r, bool tc) {
 extern "C" int sdr_fir_decim(const void* x, const void* state, const float* h,
                              float* y, float* new_state,
                              const long long* geometry, void* stream) {
+  const int flags = static_cast<int>(geometry[22]);
   const int device = static_cast<int>(geometry[0]);
   const int kind = static_cast<int>(geometry[1]);
   const int spans = static_cast<int>(geometry[2]);
@@ -681,7 +750,7 @@ extern "C" int sdr_fir_decim(const void* x, const void* state, const float* h,
     const Fir f{x,     state, y,      new_state, outer_stride, arm_stride,
                 spans, lanes, spans_per_outer,   n,            k,
                 decim, n / decim,     tile,      n_tiles,      r_pad,
-                taps,  spw,   raw,    stages};
+                taps,  spw,   raw,    stages,       flags};
     kernel<<<grid, dim3(32 * (1 + warps)), smem,
              static_cast<cudaStream_t>(stream)>>>(h, f);
     err = cudaGetLastError();

@@ -250,6 +250,10 @@ _KINDS = {torch.float32: (0, torch.float32), torch.uint8: (1, torch.float32),
 #: which form the one-byte inputs (K1, K4) take: tensor cores, else CUDA
 #: cores
 ONE_BYTE_TC = True
+#: bring-up knobs: kernel flags (1 skip the products, 2 skip the split, 4
+#: split one-byte rows by window row) and a forced ring depth
+FLAGS = 0
+STAGES = None
 
 
 class _Recipe(NamedTuple):
@@ -280,8 +284,12 @@ def _recipe(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
     device = x.get_device()
     p = plan(spans, lanes, n, k, decim, _sms(device), x.element_size(),
              kind > 0 and ONE_BYTE_TC)
-    geometry = (ctypes.c_longlong * 22)(device, kind, spans, lanes, spo, n, k,
-                                        decim, os_, as_, *p[3:])
+    if STAGES is not None:
+        p = p._replace(stages=STAGES, smem=_shared_bytes(
+            decim, p.taps, p.raw, STAGES, p.warps, p.spw))
+        p = p._replace(grid=min(p.items, blocks_per_sm(p) * _sms(device)))
+    geometry = (ctypes.c_longlong * 23)(device, kind, spans, lanes, spo, n, k,
+                                        decim, os_, as_, *p[3:], FLAGS)
     return _Recipe(copy, geometry, tuple(x.shape[:-1]) + (n // decim,))
 
 
@@ -298,7 +306,8 @@ def launch(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
     call checks the taps' type and the devices, allocates and launches."""
     device = x.get_device()
     key = (x.dtype, x.shape, x.stride(), state.dtype, state.shape,
-           state.stride(), h.shape, h.stride(), decim, device, ONE_BYTE_TC)
+           state.stride(), h.shape, h.stride(), decim, device, ONE_BYTE_TC,
+           FLAGS, STAGES)
     rec = _recipes.get(key)
     if rec is None:
         if len(_recipes) >= 256:
