@@ -28,7 +28,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
 3. the paths, each with the launch counts set to 0 just before it and
    read just after: (a) ``sdr_tpu_torch.receive`` on a synthesized 1 s
    mode-0 stereo+RDS capture, then a 512-channel ``Receiver`` for 4 blocks
-   whose channel 0 must match a single-channel run (K1, K2, K3); (b) the
+   whose channel 0 must match a single-channel run (K1, K2, K3; the
+   linear arms at 1e-5, the PLL-driven ones at 5e-3); (b) the
    CLI, ``python -m sdr_tpu_torch.cli`` driven in process, with
    ``--wideband`` on a synthesized 1 s 9.6 MS/s capture of two stations
    (K5, K2); (c) the CLI on the single-station capture of (a) (K1, K2);
@@ -95,13 +96,25 @@ WORK = ROOT / "build" / "chip_smoke"     # captures and CLI outputs
 MODE = 0
 SEED = 20261016
 K1_ATOL = 1e-5    # fp32 FIR, two summation orders (also K4, K5)
-ROW0_ATOL = 1e-4  # channel 0 of C=512 (K3) against a C=1 run (K2)
 SEP_DB = 30.0
-LINEAR_ATOL = 1e-5   # time-sharded fm_demod/mono against contiguous
+# A row run in a batch against the same row alone (channel 0 of C=512
+# against C=1; channel-sharded against per-channel runs).  K1 gives a row
+# the same bits at any batch size, but the fp32 cuBLAS products of ops/fir.py
+# (the band-passes, the audio low-pass, the RDS filters) choose their
+# kernel by shape, so a row's sums round differently in another batch
+# (scripts/torch_row_invariance.py, PERF.md section 7.4), and the PLL
+# loops amplify those ulps near a detector sign change (3.53e-3 once).
+# Making the products batch-invariant would cost a product per row, so
+# the gates are split as the JAX package splits them
+# (tests/test_models_receiver.py): the linear arms fm_demod and mono at
+# LINEAR_ATOL, the PLL-driven left, right and rds_symbols at PLL_ATOL.
+LINEAR_ATOL = 1e-5   # also time-sharded fm_demod/mono against contiguous
+PLL_ATOL = 5e-3
+ARM_ATOL = {"fm_demod": LINEAR_ATOL, "mono": LINEAR_ATOL, "left": PLL_ATOL,
+            "right": PLL_ATOL, "rds_symbols": PLL_ATOL}
 SHARD0_ATOL = 1e-2   # shard 0's left channel against contiguous
 RELOCK_RMS = 1e-4    # left after RELOCK_SKIP: RMS error / reference RMS
 RELOCK_SKIP = 8000   # audio samples (tests/test_parallel.py)
-CHANNEL_ATOL = 1e-4  # channel-sharded against per-channel runs
 SHARDS = 8
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
@@ -621,16 +634,14 @@ def phase_main_path(rng) -> dict:
     # channel 0 of the batch against a single-channel run of the same bytes
     r1 = rx.Receiver(MODE, stereo=True, with_rds=True, device="cuda")
     outs1 = r1.run(batch[0])
-    errs = []
-    for b in range(outs1.left.shape[0]):
-        e = max(max_err(getattr(outs512, f)[b, 0], getattr(outs1, f)[b])
-                for f in ("fm_demod", "mono", "left", "right", "rds_symbols"))
-        if not e <= ROW0_ATOL:
-            raise AssertionError(f"C=512 channel 0 vs C=1, block {b}: max "
-                                 f"err {e:.3g} > {ROW0_ATOL}")
-        errs.append(e)
-    print("main path: C=512 channel 0 vs C=1 per block max abs err "
-          + ", ".join(f"{e:.3g}" for e in errs) + f" (atol {ROW0_ATOL})")
+    errs = {a: max_err(getattr(outs512, a)[:, 0], getattr(outs1, a))
+            for a in ARM_ATOL}
+    if not all(errs[a] <= ARM_ATOL[a] for a in ARM_ATOL):
+        raise AssertionError(f"C=512 channel 0 vs C=1: max err {errs} (atol "
+                             f"{ARM_ATOL})")
+    print("main path: C=512 channel 0 vs C=1 over 4 blocks, max abs err "
+          + ", ".join(f"{a} {e:.3g} (atol {ARM_ATOL[a]})"
+                      for a, e in errs.items()))
     return {"launches": launches, "per_block": per_block, "capture": res}
 
 
@@ -813,17 +824,16 @@ def phase_time_sharded(rng) -> dict:
     for c in range(8):
         one = rx.Receiver(MODE, stereo=True, with_rds=True,
                           device="cuda").run(chans[c])
-        for a in ("fm_demod", "mono", "left", "right", "rds_symbols"):
+        for a in ARM_ATOL:
             errs[a] = max(errs.get(a, 0.0),
                           max_err(getattr(outs, a)[:, c], getattr(one, a)))
-    worst = max(errs.values())
-    if not worst <= CHANNEL_ATOL:
-        raise AssertionError(f"channel-sharded: max err {worst:.3g} > "
-                             f"{CHANNEL_ATOL} (per arm {errs}; offsets "
-                             f"{offs.tolist()})")
-    print(f"channel-sharded: 8 channels x 4 blocks over 2 shards of cuda:0 "
-          f"vs per-channel runs: max abs err {worst:.3g} (atol "
-          f"{CHANNEL_ATOL})")
+    if not all(errs[a] <= ARM_ATOL[a] for a in ARM_ATOL):
+        raise AssertionError(f"channel-sharded: max err {errs} (atol "
+                             f"{ARM_ATOL}; offsets {offs.tolist()})")
+    print("channel-sharded: 8 channels x 4 blocks over 2 shards of cuda:0 "
+          "vs per-channel runs: max abs err "
+          + ", ".join(f"{a} {e:.3g} (atol {ARM_ATOL[a]})"
+                      for a, e in errs.items()))
 
     if torch.cuda.device_count() >= 2:
         two = Mesh(["cuda:0"] * (SHARDS // 2) + ["cuda:1"] * (SHARDS // 2),

@@ -324,16 +324,10 @@ def main() -> None:
     ap.add_argument("--parts", default="k1,k4,k5,k6,block,wideband,sharded",
                     help="comma-separated: k1, k4, k5, k6, block, wideband, "
                          "sharded")
-    ap.add_argument("--one-byte-form", choices=("tc", "cores"),
-                    help="the form of K1 and K4 in a tree that has both: "
-                         "tensor cores or CUDA cores")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     from sdr_tpu_torch.models import receiver as rx
-    if args.one_byte_form:
-        from sdr_tpu_torch.ops import fir_decim
-        fir_decim.ONE_BYTE_TC = args.one_byte_form == "tc"
 
     rx.pin_fp32_matmul()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

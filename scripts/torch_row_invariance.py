@@ -32,6 +32,7 @@ The card's name and power limit come first.  Needs one NVIDIA GPU.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 
@@ -77,6 +78,7 @@ class Hooks:
             setattr(mod, name, self._wrap(name, fn))
 
     def _wrap(self, name, fn):
+        @functools.wraps(fn)        # keeps a wrapper's launch count
         def hooked(*args, **kw):
             out = fn(*args, **kw)
             self.calls.append((_label(name, args), out[0]))

@@ -9,7 +9,11 @@
 //   y[b, j] = sum_u h[K-1-u] * xc[b, j*D + u],   xc[b] = [state[b], x[b]]
 //
 // in fp32, from one template whose input type is a parameter (F32In, U8In,
-// I8In: how an element and a state element become a float).  This is the
+// I8In: how an element and a state element become a float).  A one-byte
+// sample is split as the exact integer u8 - 128 or int8, and the 2^-7 is
+// folded into the taps (h * 2^-7 times the integer is the same product as
+// h times the normalized sample, so the sums are the same bit for bit).
+// This is the
 // TPU kernels' function, not their block structure: their polyphase VMEM
 // tiling, halo views and bf16 hi/lo weight split are TPU layout and are
 // not carried over.  Polyphase: with u = q*D + p, output j is sum_p sum_q
@@ -33,20 +37,11 @@
 //   aligned groups of 8 words, so a phase row holds its 32*R + r_pad window
 //   rows rounded up to 8 (spw).  Small shapes take R = 1 (scalar window
 //   loads), so that a C=1 block still spreads over more than 132 blocks.
-// * Tensor cores (the one-byte inputs' form, TC).  A u8 or int8 sample
-//   normalized by 2^-7 is an 8-bit integer times a power of two: exact in
-//   TF32.  So the FIR runs as mma.sync m16n8k8 TF32 products with the taps
-//   split in two, hi = tf32(h) and lo = tf32(h - hi) (2^-22 relative),
-//   each product summed in its own fp32 accumulator and the two added
-//   last.  A warp's 32*R outputs form R/4 tiles of 16 x 8: output jw +
-//   128*tile + 8*t + i is row t, column i, and per phase p
-//     Y[t, i] = sum_s X[t, s] B[s, i],  X[t, s] = sp[p, 128*tile + 8t + s],
-//     B[s, i] = hp[p, s - i] (zero outside the phase's taps),
-//   a banded (Toeplitz) B of ks = ceil((r_rows + 7) / 8) k-steps of 8.  X
-//   comes from the swizzled split with one ldmatrix.x4 a k-step (rows 8
-//   words apart: all 32 banks); B's hi and lo fragments are built once per
-//   block in fragment order, one 16-byte load a lane and k-step.  r_pad is
-//   8 * (ks - 1): the window rows past the warp's outputs.
+//   A TF32 tensor-core form of the one-byte instances (exact samples, the
+//   taps split hi + lo) was timed against this one and lost (PERF.md): its
+//   ldmatrix and tap-fragment loads move as many shared-memory bytes per
+//   output as the multiply-adds here, and two thirds of its products are
+//   zero taps of the banded matrix.
 // * Staging that overlaps compute.  Persistent blocks walk (row, tile)
 //   work items.  Warp 0 is the producer: one thread brings each item's
 //   input span into a ring of shared-memory stages with one cp.async.bulk
@@ -54,9 +49,9 @@
 //   empty mbarrier.  The span is staged in its own type: the raw bytes for
 //   u8 and int8, a quarter of the float path's.  Each compute warp owns
 //   32*R outputs of one arm of the item and splits its part of the staged
-//   span by phase into its own float buffer: the deinterleave, the
-//   conversion and (u8) the exact (x - 128) * 2^-7 happen here, four loads
-//   in flight a lane; it releases the stage and computes from its buffer
+//   span by phase into its own float buffer: the deinterleave and the
+//   conversion (u8: the exact x - 128) happen here, four loads in flight a
+//   lane; it releases the stage and computes from its buffer
 //   while the producer loads the next item.  The ring depth (1-3) is the
 //   plan's: at the paths' large shapes one stage with more blocks resident
 //   ran faster than two stages with fewer (PERF.md).
@@ -69,24 +64,21 @@
 //   new f32 state, the last K-1 samples of [state, x] converted as the
 //   FIR reads them, into its own output (a block shorter than K-1 keeps
 //   part of the old state), so one call is one launch.
-// * The geometry (R, TC, warps, tile, taps, stages, shared bytes, grid) is
+// * The geometry (R, warps, tile, stages, shared bytes, grid) is
 //   a pure function of the shape, computed in Python (ops/fir_decim.py,
 //   plan) and passed in; the kernel checks only what would fault.  All of
 //   the SM's unified L1/shared memory goes to shared memory, so that the
 //   plan's blocks fit.
 //
-// Summation order: an output's sum never depends on the plan.  The CUDA
-// cores sum by phase p = 0..D-1, then by tap q = 0..r_pad-1 within the
-// phase, for R = 8 and R = 1 alike (padded taps add exact zeros); the
-// tensor cores sum by phase, then k-step, each output at the same place of
-// its 16 x 8 tile (warps start at multiples of 128 outputs).  So a row
-// gives bit-identical output at any batch size.  The plain version sums
+// Summation order: an output's sum never depends on the plan: by phase p =
+// 0..D-1, then by tap q = 0..r_pad-1 within the phase, for R = 8 and R = 1
+// alike (padded taps add exact zeros).  So a row gives bit-identical
+// output at any batch size.  The plain version sums
 // another order: within 1e-5.  The state is copied, so it is bit-equal to
 // the plain version's.
 //
 // The library is built with --fmad=false for the PLL kernels; the
-// multiply-adds here are explicit fmaf or mma, which that flag leaves
-// alone.
+// multiply-adds here are explicit fmaf, which that flag leaves alone.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -101,31 +93,48 @@ constexpr int kBarBytes = 64;    // full and empty mbarriers of <= 4 stages
 constexpr int kMaxWarps = 4;     // compute warps per block
 constexpr int kMaxShared = 232448;
 constexpr int kMaxDevices = 64;
-constexpr float kScale = 0.0078125f;  // 2^-7: an 8-bit integer times it is exact
+constexpr float kScale = 0.0078125f;  // 2^-7
 
-// The input types: how an element of x and of the state become a float.
+// The input types: an element of x and of the state as the split holds
+// them (x, s), the same normalized for the new state (x_out, s_out), and
+// the factor on the taps (kTap) that makes up the difference.
 struct F32In {
   using T = float;
   using S = float;
+  static constexpr float kTap = 1.0f;
   static __device__ __forceinline__ float x(float v) { return v; }
   static __device__ __forceinline__ float s(float v) { return v; }
+  static __device__ __forceinline__ float x_out(float v) { return v; }
+  static __device__ __forceinline__ float s_out(float v) { return v; }
 };
-struct U8In {  // raw SDR bytes, state already normalized
+struct U8In {  // raw SDR bytes as u8 - 128; the state normalized
   using T = uint8_t;
   using S = float;
+  static constexpr float kTap = kScale;
   static __device__ __forceinline__ float x(uint8_t v) {
-    return static_cast<float>(static_cast<int>(v) - 128) * kScale;
+    return static_cast<float>(static_cast<int>(v) - 128);
   }
-  static __device__ __forceinline__ float s(float v) { return v; }
+  static __device__ __forceinline__ float s(float v) { return v * 128.0f; }
+  static __device__ __forceinline__ float x_out(uint8_t v) {
+    return x(v) * kScale;
+  }
+  static __device__ __forceinline__ float s_out(float v) { return v; }
 };
-struct I8In {  // bias-flipped bytes, state as int8 too
+struct I8In {  // bias-flipped bytes, the state as int8 too
   using T = int8_t;
   using S = int8_t;
+  static constexpr float kTap = kScale;
   static __device__ __forceinline__ float x(int8_t v) {
-    return static_cast<float>(v) * kScale;
+    return static_cast<float>(v);
   }
   static __device__ __forceinline__ float s(int8_t v) {
-    return static_cast<float>(v) * kScale;
+    return static_cast<float>(v);
+  }
+  static __device__ __forceinline__ float x_out(int8_t v) {
+    return x(v) * kScale;
+  }
+  static __device__ __forceinline__ float s_out(int8_t v) {
+    return s(v) * kScale;
   }
 };
 
@@ -138,8 +147,7 @@ struct alignas(2 * sizeof(T)) Pair {
 // spans and the plan).  A span is one staged row of x: `lanes` arms
 // interleaved (1, or 2 for the receiver's I/Q), span s at
 // x + (s / spo) * outer_stride + (s % spo) * arm_stride elements; output
-// and state row s * lanes + a.  `taps`: floats of the tap table, `raw`:
-// bytes of a stage.
+// and state row s * lanes + a.  `raw`: bytes of a stage.
 struct Fir {
   const void* x;
   const void* state;
@@ -147,7 +155,7 @@ struct Fir {
   float* new_state;
   long long outer_stride, arm_stride;
   int spans, lanes, spo, n, k, decim, n_out;
-  int tile, n_tiles, r_pad, taps, spw, raw, stages, flags;
+  int tile, n_tiles, r_pad, spw, raw, stages;
 };
 
 __device__ __forceinline__ int swz(int m) { return m ^ (((m >> 5) & 1) << 2); }
@@ -280,63 +288,6 @@ __device__ __forceinline__ void split_rows(
   }
 }
 
-// One-byte inputs, when every element of the warp's rows lies in the
-// staged block: the split by window rows.  A unit is (phase p, chunk c of
-// 32 rows); lane l takes row m = 32c + l, whose element lies at xc index
-// m*D + p, so a lane loads its byte (a pair of bytes: both arms) and
-// stores one word per arm, and the 32 rows of a chunk are 32 consecutive
-// words of the phase row, which the swizzle permutes within their group
-// (no bank conflict).  Units u0, u0 + ustep, ...; four a lane in flight.
-template <int ARMS, class In>
-__device__ __forceinline__ void split_by_rows(const Fir& f,
-                                              const typename In::T* src,
-                                              float* sp0, float* sp1,
-                                              int rows_m, int u0, int ustep,
-                                              int lane) {
-  using T = typename In::T;
-  const int chunks = (rows_m + 31) >> 5;
-  const int units = chunks * f.decim;
-  const bool pairs =
-      (reinterpret_cast<uintptr_t>(src) & (2 * sizeof(T) - 1)) == 0;
-  const int pstep = ustep / chunks, cstep = ustep % chunks;
-  int p = u0 / chunks, c = u0 % chunks;
-  for (int u = u0; u < units;) {
-    float2 v[4];
-    int at[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = 32 * c + lane;
-      at[i] = -1;
-      if (u < units && m < rows_m) {
-        at[i] = p * f.spw + 32 * c + (lane ^ ((c & 1) << 2));
-        const T* q = src + (m * f.decim + p) * f.lanes;
-        if (ARMS == 1) {
-          v[i].x = In::x(q[0]);
-        } else if (pairs) {
-          const Pair<T> w = *reinterpret_cast<const Pair<T>*>(q);
-          v[i] = make_float2(In::x(w.a), In::x(w.b));
-        } else {
-          v[i] = make_float2(In::x(q[0]), In::x(q[1]));
-        }
-      }
-      u += ustep;
-      p += pstep;
-      c += cstep;
-      if (c >= chunks) {
-        c -= chunks;
-        ++p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (at[i] >= 0) {
-        sp0[at[i]] = v[i].x;
-        if (ARMS == 2) sp1[at[i]] = v[i].y;
-      }
-    }
-  }
-}
-
 // The two compute warps of an interleaved span (arms 0 and 1; a plan with
 // lanes 2 has exactly these two).
 __device__ __forceinline__ void pair_sync() {
@@ -416,35 +367,6 @@ __device__ __forceinline__ void outputs(const float* sp, const float* hp,
   }
 }
 
-// --- the tensor-core form ------------------------------------------------------
-
-__device__ __forceinline__ float tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return __uint_as_float(r);
-}
-
-// d += a (16 x 8, rows) * b (8 x 8, columns) in TF32 with an fp32 sum
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         float b0, float b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
-        "r"(__float_as_uint(b1)));
-}
-
-// The A fragment of one k-step: four 8 x 4-float matrices, each lane
-// handing over the address of one 16-byte row.
-__device__ __forceinline__ void ldsm4(uint32_t (&a)[4], const float* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(bulk::smem_addr(row))
-      : "memory");
-}
-
 // hp[p, u]: the tap of phase p at window offset u, zero outside the filter
 __device__ __forceinline__ float phase_tap(const float* h, int km1, int decim,
                                            int p, int u) {
@@ -452,40 +374,9 @@ __device__ __forceinline__ float phase_tap(const float* h, int km1, int decim,
   return (u >= 0 && t >= 0) ? h[t] : 0.0f;
 }
 
-// acc[tile][0] (hi taps) and acc[tile][1] (lo taps) of TILES 16 x 8 tiles
-// at window row 0: lane (g, c) = (lane / 4, lane % 4) ends with rows g and
-// g + 8, columns 2c and 2c + 1 of each.  Summed by phase, then k-step.
-template <int TILES>
-__device__ __forceinline__ void outputs_tc(const float* sp, const float4* hf,
-                                           int spw, int ks, int decim,
-                                           int lane,
-                                           float (&acc)[TILES][2][4]) {
-#pragma unroll
-  for (int t = 0; t < TILES; ++t)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[t][0][v] = acc[t][1][v] = 0.0f;
-  // this lane's ldmatrix row: matrix lane / 8 is rows 0-7 or 8-15 (bit 0),
-  // floats 0-3 or 4-7 (bit 1) of the k-step
-  const int q = lane >> 3;
-  const int m_lane = 8 * ((lane & 7) + 8 * (q & 1)) + 4 * (q >> 1);
-  for (int p = 0; p < decim; ++p) {
-    const float* srow = sp + p * spw;
-    for (int kk = 0; kk < ks; ++kk) {
-      const float4 b = hf[(p * ks + kk) * 32 + lane];
-#pragma unroll
-      for (int t = 0; t < TILES; ++t) {
-        uint32_t a[4];
-        ldsm4(a, srow + swz(128 * t + m_lane + 8 * kk));
-        mma_tf32(acc[t][0], a, b.x, b.y);
-        mma_tf32(acc[t][1], a, b.z, b.w);
-      }
-    }
-  }
-}
-
 // --- the kernel ----------------------------------------------------------------
 
-template <int R, bool TC, class In>
+template <int R, class In>
 __global__ void __launch_bounds__(32 * (1 + kMaxWarps))
     fir_kernel(const float* __restrict__ h, const Fir f) {
   using T = typename In::T;
@@ -493,14 +384,14 @@ __global__ void __launch_bounds__(32 * (1 + kMaxWarps))
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + f.stages;
-  float* hp = reinterpret_cast<float*>(smem + kBarBytes);  // taps
-  unsigned char* ring = reinterpret_cast<unsigned char*>(hp + f.taps);
+  float* hp = reinterpret_cast<float*>(smem + kBarBytes);  // (D, r_pad)
+  unsigned char* ring =
+      reinterpret_cast<unsigned char*>(hp + f.decim * f.r_pad);
   float* split = reinterpret_cast<float*>(ring + f.stages * f.raw);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x / 32 - 1;
   const int km1 = f.k - 1;
-  const int ks = (f.r_pad >> 3) + 1;  // TC: k-steps per phase
   if (threadIdx.x == 0) {
     for (int s = 0; s < f.stages; ++s) {
       bulk::bar_init(&full[s], 1);
@@ -508,23 +399,8 @@ __global__ void __launch_bounds__(32 * (1 + kMaxWarps))
     }
     bulk::bar_init_fence();
   }
-  if (TC) {
-    // B's fragments in their lanes' order: per (phase, k-step) and lane
-    // (g, c), the taps at window offsets 8kk + c - g and 8kk + c + 4 - g,
-    // hi and lo
-    float4* hf = reinterpret_cast<float4*>(hp);
-    for (int i = threadIdx.x; i < f.decim * ks * 32; i += blockDim.x) {
-      const int ln = i & 31, kk = (i >> 5) % ks, p = (i >> 5) / ks;
-      const int u = 8 * kk + (ln & 3) - (ln >> 2);
-      const float t0 = phase_tap(h, km1, f.decim, p, u);
-      const float t1 = phase_tap(h, km1, f.decim, p, u + 4);
-      const float h0 = tf32(t0), h1 = tf32(t1);
-      hf[i] = make_float4(h0, h1, tf32(t0 - h0), tf32(t1 - h1));
-    }
-  } else {
-    for (int i = threadIdx.x; i < f.decim * f.r_pad; i += blockDim.x)
-      hp[i] = phase_tap(h, km1, f.decim, i / f.r_pad, i % f.r_pad);
-  }
+  for (int i = threadIdx.x; i < f.decim * f.r_pad; i += blockDim.x)
+    hp[i] = phase_tap(h, km1, f.decim, i / f.r_pad, i % f.r_pad) * In::kTap;
   __syncthreads();
 
   const int items = f.spans * f.n_tiles;
@@ -563,59 +439,31 @@ __global__ void __launch_bounds__(32 * (1 + kMaxWarps))
         const T* xs = reinterpret_cast<const T*>(ring + s * f.raw) + st.off;
         const S* old = state + static_cast<long long>(row) * km1;
         const int total = rows_m * f.decim;
-        const int g0 = jw * f.decim;
-        // the pair splits both arms: once the partner has finished reading
-        // its buffer
-        if (f.lanes == 2) pair_sync();
-        float* sp0 = sp - arm * f.decim * f.spw;
-        if (f.flags & 2) {
-        } else if (sizeof(T) == 1 && (f.flags & 4) && g0 >= km1 &&
-                   g0 + total <= st.g_end) {
-          const T* src = xs + (g0 - km1 - st.i_lo) * f.lanes;
-          if (f.lanes == 1) {
-            split_by_rows<1, In>(f, src, sp, sp, rows_m, 0, 1, lane);
-          } else {
-            split_by_rows<2, In>(f, src, sp0, sp0 + f.decim * f.spw, rows_m,
-                                 arm, 2, lane);
-          }
-        } else if (f.lanes == 1) {
-          split_rows<1, In>(f, st, xs, old, old, sp, sp, g0, 0, total, lane);
+        if (f.lanes == 1) {
+          split_rows<1, In>(f, st, xs, old, old, sp, sp, jw * f.decim, 0,
+                            total, lane);
         } else {
-          // each warp half of the rows
+          // the pair splits both arms, each warp half of the rows: once
+          // the partner has finished reading its buffer
+          pair_sync();
+          float* sp0 = sp - arm * f.decim * f.spw;
           split_rows<2, In>(f, st, xs, old - arm * km1, old + (1 - arm) * km1,
-                            sp0, sp0 + f.decim * f.spw, g0,
+                            sp0, sp0 + f.decim * f.spw, jw * f.decim,
                             arm * (total / 2), arm ? total : total / 2, lane);
         }
       }
       __syncwarp();
       if (lane == 0) bulk::bar_arrive(&empty[s]);
       if (f.lanes == 2 && jw < j1) pair_sync();  // both halves written
-      if (jw < j1 && !(f.flags & 1)) {
+      if (jw < j1) {
+        float acc[R];
+        const int m0 = lane * R;
+        outputs<R>(sp, hp, f.spw, f.r_pad, f.decim, m0, acc);
         float* yr = f.y + static_cast<long long>(row) * f.n_out;
-        if constexpr (TC) {
-          constexpr int kTiles = R / 4;
-          float acc[kTiles][2][4];
-          outputs_tc<kTiles>(sp, reinterpret_cast<const float4*>(hp), f.spw,
-                             ks, f.decim, lane, acc);
 #pragma unroll
-          for (int t = 0; t < kTiles; ++t) {
-#pragma unroll
-            for (int v = 0; v < 4; ++v) {
-              // c_v: row g (+ 8 for v >= 2), column 2c + (v & 1)
-              const int j = jw + 128 * t + 8 * ((lane >> 2) + 8 * (v >> 1)) +
-                            2 * (lane & 3) + (v & 1);
-              if (j < j1) yr[j] = acc[t][0][v] + acc[t][1][v];
-            }
-          }
-        } else {
-          float acc[R];
-          const int m0 = lane * R;
-          outputs<R>(sp, hp, f.spw, f.r_pad, f.decim, m0, acc);
-#pragma unroll
-          for (int i = 0; i < R; ++i) {
-            const int j = jw + m0 + i;
-            if (j < j1) yr[j] = acc[i];
-          }
+        for (int i = 0; i < R; ++i) {
+          const int j = jw + m0 + i;
+          if (j < j1) yr[j] = acc[i];
         }
       }
       __syncwarp();  // every lane has read sp before the next split
@@ -634,12 +482,12 @@ __global__ void __launch_bounds__(32 * (1 + kMaxWarps))
     const int c = static_cast<int>(i % km1);
     float v;
     if (c < keep) {
-      v = In::s(st[static_cast<long long>(row) * km1 + f.n + c]);
+      v = In::s_out(st[static_cast<long long>(row) * km1 + f.n + c]);
     } else {
       const int xi = f.n - km1 + c;  // >= 0 here
-      v = In::x(span_row<In>(f, row / f.lanes)[static_cast<long long>(xi) *
-                                                   f.lanes +
-                                               row % f.lanes]);
+      v = In::x_out(span_row<In>(f, row / f.lanes)[static_cast<long long>(
+                                                        xi) * f.lanes +
+                                                    row % f.lanes]);
     }
     f.new_state[i] = v;
   }
@@ -647,26 +495,18 @@ __global__ void __launch_bounds__(32 * (1 + kMaxWarps))
 
 using Kernel = void (*)(const float*, Fir);
 
-// The instances: per input kind (0 float, 1 u8, 2 int8) the CUDA-core
-// forms R = 8 and R = 1 and, for the one-byte kinds, the tensor-core
-// forms of two tiles (R = 8) and one (R = 4) a warp.
-Kernel kernel_of(int kind, int r, bool tc) {
+// The instances: R = 8 and R = 1 per input kind (0 float, 1 u8, 2 int8).
+Kernel kernel_of(int kind, int r) {
+  if (r != 8 && r != 1) return nullptr;
   switch (kind) {
     case 0:
-      if (tc) return nullptr;
-      return r == 8 ? fir_kernel<8, false, F32In> : r == 1 ? fir_kernel<1, false, F32In> : nullptr;
+      return r == 8 ? fir_kernel<8, F32In> : fir_kernel<1, F32In>;
     case 1:
-      if (tc) return r == 8 ? fir_kernel<8, true, U8In> : r == 4 ? fir_kernel<4, true, U8In> : nullptr;
-      return r == 8 ? fir_kernel<8, false, U8In> : r == 1 ? fir_kernel<1, false, U8In> : nullptr;
+      return r == 8 ? fir_kernel<8, U8In> : fir_kernel<1, U8In>;
     case 2:
-      if (tc) return r == 8 ? fir_kernel<8, true, I8In> : r == 4 ? fir_kernel<4, true, I8In> : nullptr;
-      return r == 8 ? fir_kernel<8, false, I8In> : r == 1 ? fir_kernel<1, false, I8In> : nullptr;
+      return r == 8 ? fir_kernel<8, I8In> : fir_kernel<1, I8In>;
   }
   return nullptr;
-}
-
-int variant_of(int kind, int r, bool tc) {
-  return kind * 4 + (tc ? 2 : 0) + (r == 8 ? 0 : 1);
 }
 
 }  // namespace
@@ -674,17 +514,16 @@ int variant_of(int kind, int r, bool tc) {
 // K5, K1, K4: x as struct Fir describes it (float, u8 or int8 elements),
 // state (spans * lanes, k-1) of float (float, u8) or int8, h (k) f32 ->
 // y (spans * lanes, n/decim) f32 and new_state (spans * lanes, k-1) f32.
-// `geometry`: 22 host integers, the CUDA device, the input kind (0 float,
+// `geometry`: 20 host integers, the CUDA device, the input kind (0 float,
 // 1 u8, 2 int8), spans, lanes, spans per outer row, n, k, decim, the outer
 // and arm strides of x in elements, then the launch plan of
-// ops/fir_decim.py (r, tc, warps, tile, n_tiles, r_pad, taps, spw, raw,
-// stages, smem, grid).  Launches on `stream`, which must belong to the
-// device; returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for what it does not take).
+// ops/fir_decim.py (r, warps, tile, n_tiles, r_pad, spw, raw, stages,
+// smem, grid).  Launches on `stream`, which must belong to the device;
+// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// what it does not take).
 extern "C" int sdr_fir_decim(const void* x, const void* state, const float* h,
                              float* y, float* new_state,
                              const long long* geometry, void* stream) {
-  const int flags = static_cast<int>(geometry[22]);
   const int device = static_cast<int>(geometry[0]);
   const int kind = static_cast<int>(geometry[1]);
   const int spans = static_cast<int>(geometry[2]);
@@ -695,38 +534,32 @@ extern "C" int sdr_fir_decim(const void* x, const void* state, const float* h,
   const int decim = static_cast<int>(geometry[7]);
   const long long outer_stride = geometry[8], arm_stride = geometry[9];
   const int r = static_cast<int>(geometry[10]);
-  const bool tc = geometry[11] != 0;
-  const int warps = static_cast<int>(geometry[12]);
-  const int tile = static_cast<int>(geometry[13]);
-  const int n_tiles = static_cast<int>(geometry[14]);
-  const int r_pad = static_cast<int>(geometry[15]);
-  const int taps = static_cast<int>(geometry[16]);
-  const int spw = static_cast<int>(geometry[17]);
-  const int raw = static_cast<int>(geometry[18]);
-  const int stages = static_cast<int>(geometry[19]);
-  const int smem = static_cast<int>(geometry[20]);
-  const int grid = static_cast<int>(geometry[21]);
-  const Kernel kernel = kernel_of(kind, r, tc);
+  const int warps = static_cast<int>(geometry[11]);
+  const int tile = static_cast<int>(geometry[12]);
+  const int n_tiles = static_cast<int>(geometry[13]);
+  const int r_pad = static_cast<int>(geometry[14]);
+  const int spw = static_cast<int>(geometry[15]);
+  const int raw = static_cast<int>(geometry[16]);
+  const int stages = static_cast<int>(geometry[17]);
+  const int smem = static_cast<int>(geometry[18]);
+  const int grid = static_cast<int>(geometry[19]);
+  const Kernel kernel = kernel_of(kind, r);
   const int elem = kind == 0 ? 4 : 1;
-  const int r_rows = decim > 0 ? (k + decim - 1) / decim : 0;
-  const bool taps_ok =
-      tc ? (r_pad % 8 == 0 && r_pad + 8 >= r_rows + 7 &&
-            taps == decim * (r_pad / 8 + 1) * 128)
-         : (r_pad % kT == 0 && r_pad * decim >= k && taps == decim * r_pad);
   if (kernel == nullptr || spans <= 0 || lanes < 1 || lanes > 2 ||
       spans_per_outer <= 0 || n <= 0 || k < 2 || decim <= 0 ||
       n % decim != 0 || warps < lanes || warps > kMaxWarps ||
       warps % lanes != 0 || (lanes == 2 && warps != 2) ||
       tile != 32 * r * (warps / lanes) ||
       static_cast<long long>(n_tiles) * tile < n / decim ||
-      static_cast<long long>(spans) * n_tiles > INT_MAX || !taps_ok ||
-      spw % 4 != 0 || spw < ((32 * r + r_pad + 7) & ~7) || raw % 16 != 0 ||
+      static_cast<long long>(spans) * n_tiles > INT_MAX || r_pad % kT != 0 ||
+      r_pad * decim < k || spw % 4 != 0 ||
+      spw < ((32 * r + r_pad + 7) & ~7) || raw % 16 != 0 ||
       raw < (tile + r_pad) * decim * lanes * elem + 32 || stages < 1 ||
       2 * stages * 8 > kBarBytes || smem > kMaxShared || grid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long need = kBarBytes +
-                         4 * (1LL * taps + 1LL * warps * decim * spw) +
-                         1LL * stages * raw;
+  const long long need =
+      kBarBytes + 4 * (1LL * decim * r_pad + 1LL * warps * decim * spw) +
+      1LL * stages * raw;
   if (smem < need) return static_cast<int>(cudaErrorInvalidValue);
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -734,9 +567,9 @@ extern "C" int sdr_fir_decim(const void* x, const void* state, const float* h,
   if (err != cudaSuccess) return static_cast<int>(err);
   // above 48 KB of dynamic shared memory, and all of the SM's unified
   // L1/shared memory as shared, so that the plan's blocks per SM fit: once
-  // per device and variant
-  static bool opened[kMaxDevices][12];
-  const int variant = variant_of(kind, r, tc);
+  // per device and instance
+  static bool opened[kMaxDevices][6];
+  const int variant = 2 * kind + (r == 8 ? 0 : 1);
   if (device >= 0 && device < kMaxDevices && !opened[device][variant]) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared);
@@ -750,7 +583,7 @@ extern "C" int sdr_fir_decim(const void* x, const void* state, const float* h,
     const Fir f{x,     state, y,      new_state, outer_stride, arm_stride,
                 spans, lanes, spans_per_outer,   n,            k,
                 decim, n / decim,     tile,      n_tiles,      r_pad,
-                taps,  spw,   raw,    stages,       flags};
+                spw,   raw,   stages};
     kernel<<<grid, dim3(32 * (1 + warps)), smem,
              static_cast<cudaStream_t>(stream)>>>(h, f);
     err = cudaGetLastError();

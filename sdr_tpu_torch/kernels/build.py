@@ -106,7 +106,7 @@ def load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # x, state, h, y, new_state, geometry (22 long longs:
+    # x, state, h, y, new_state, geometry (20 long longs:
     # ops/fir_decim.py _recipe), stream
     lib.sdr_fir_decim.argtypes = [p, p, p, p, p, p, p]
     # xs, carry0, consts, args, carry_out, n, lanes, ld, stream

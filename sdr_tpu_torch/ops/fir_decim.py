@@ -46,22 +46,17 @@ class FirPlan(NamedTuple):
     A work item is (span, tile): ``tile`` consecutive outputs of each of a
     span's ``lanes`` interleaved arms.  A block runs one producer warp and
     ``warps`` compute warps; compute warp w takes arm ``w % lanes`` and
-    outputs ``(w // lanes) * 32 * r`` .. + ``32 * r`` of the item.  Blocks
-    walk items ``block, block + grid, ...``."""
+    outputs ``(w // lanes) * 32 * r`` .. + ``32 * r`` of the item, ``r``
+    per lane.  Blocks walk items ``block, block + grid, ...``."""
 
     spans: int
     lanes: int
     n_out: int
-    r: int              # outputs per lane: 8, or 1 when small (CUDA cores);
-    #                     8 or 4, two or one 16 x 8 tiles a warp (TC)
-    tc: bool            # tensor cores (one-byte inputs), else CUDA cores
+    r: int              # consecutive outputs per thread: 8, or 1 when small
     warps: int          # compute warps per block
     tile: int           # outputs per arm and work item
     n_tiles: int        # work items per span
-    r_pad: int          # window rows past a warp's outputs: taps per phase,
-    #                     ceil(K/D) rounded up to TAPS_STEP (CUDA cores), or
-    #                     8 * (k-steps - 1) (TC)
-    taps: int           # floats of the tap table
+    r_pad: int          # taps per phase, ceil(K/D) rounded up to TAPS_STEP
     spw: int            # floats per phase row of a warp's split buffer:
     #                     its 32 * r + r_pad window rows rounded up to 8
     #                     (the swizzle permutes aligned groups of 8), then
@@ -79,32 +74,20 @@ class FirPlan(NamedTuple):
         """(output row, first output, count, order) of every warp and lane
         of work item ``item``, as the kernel assigns them; lanes past the
         end of a row compute nothing.  ``order`` is what decides the
-        summation order of those outputs: on the CUDA cores the same for
-        every output (by phase, then tap); on the tensor cores the
-        outputs' place in their 16 x 8 tile."""
+        summation order of those outputs: by phase, then by each of the
+        phase's ``r_pad`` taps, whatever the lane, warp, item or R."""
         out = []
         span, j0 = divmod(item, self.n_tiles)
         j0 *= self.tile
         j1 = min(j0 + self.tile, self.n_out)
         for w in range(self.warps):
             arm, chunk = w % self.lanes, w // self.lanes
-            jw = j0 + chunk * 32 * self.r
-            row = span * self.lanes + arm
             for lane in range(32):
-                if not self.tc:
-                    j = jw + lane * self.r
-                    if j < j1:
-                        out.append((row, j, min(self.r, j1 - j),
-                                    ("phase, tap", self.r_pad)))
-                    continue
-                g, c = divmod(lane, 4)
-                for t in range(self.r // 4):
-                    for half in (0, 1):
-                        at = 8 * (g + 8 * half) + 2 * c
-                        j = jw + 128 * t + at
-                        if j < j1:
-                            out.append((row, j, min(2, j1 - j),
-                                        ("tc", self.r_pad, at)))
+                j = j0 + chunk * 32 * self.r + lane * self.r
+                if j < j1:
+                    out.append((span * self.lanes + arm, j,
+                                min(self.r, j1 - j),
+                                ("by phase, then tap", self.r_pad)))
         return out
 
     def outputs(self, block: int) -> list[tuple[int, int, int, tuple]]:
@@ -114,9 +97,9 @@ class FirPlan(NamedTuple):
                 for o in self.item_outputs(item)]
 
 
-def _shared_bytes(decim: int, taps: int, raw: int, stages: int, warps: int,
+def _shared_bytes(decim: int, r_pad: int, raw: int, stages: int, warps: int,
                   spw: int) -> int:
-    return BAR_BYTES + 4 * (taps + warps * decim * spw) + stages * raw
+    return BAR_BYTES + 4 * (decim * r_pad + warps * decim * spw) + stages * raw
 
 
 def blocks_per_sm(p: FirPlan) -> int:
@@ -127,31 +110,24 @@ def blocks_per_sm(p: FirPlan) -> int:
 
 
 def plan(spans: int, lanes: int, n: int, k: int, decim: int,
-         sms: int = SMS, elem: int = 4, tc: bool = False) -> FirPlan:
+         sms: int = SMS, elem: int = 4) -> FirPlan:
     """The template's geometry for ``spans`` staged rows of ``lanes``
     interleaved arms of ``n`` samples of ``elem`` bytes (4 float, 1 u8 or
-    int8), ``k`` taps, decimation ``decim``, on a card of ``sms`` SMs; on
-    the tensor cores when ``tc`` (one-byte inputs only).
+    int8), ``k`` taps, decimation ``decim``, on a card of ``sms`` SMs.
 
-    R = 8 outputs per lane and four compute warps (two for interleaved
+    R = 8 outputs per thread and four compute warps (two for interleaved
     I/Q, one per arm, whose spans are twice as long), each 256 outputs of
-    an arm; when that gives fewer items than SMs, one warp per arm and R =
-    1 (32 outputs per item; TC: R = 4, one 128-output tile), so that a
-    small block still spreads over the card.  One to three stages,
-    whichever lets the most blocks share an SM.  The grid is as many
-    blocks as fit on the card, at most one per item."""
+    an arm; when that gives fewer items than SMs, R = 1 and one warp per
+    arm, 32 outputs per item, so that a small block still spreads over the
+    card.  One to three stages, whichever lets the most blocks share an
+    SM.  The grid is as many blocks as fit on the card, at most one per
+    item."""
     if lanes not in (1, 2) or spans < 1 or n < 1 or k < 2 or decim < 1 \
-            or n % decim or elem not in (1, 4) or (tc and elem != 1):
+            or n % decim or elem not in (1, 4):
         raise ValueError(f"no FIR plan for spans {spans}, lanes {lanes}, n "
-                         f"{n}, k {k}, decim {decim}, elem {elem}, tc {tc}")
+                         f"{n}, k {k}, decim {decim}, elem {elem}")
     n_out = n // decim
-    r_rows = -(-k // decim)
-    if tc:
-        ks = -(-(r_rows + 7) // 8)              # k-steps of 8 per phase
-        r_pad, taps = 8 * (ks - 1), decim * ks * 128
-    else:
-        r_pad = -(-r_rows // TAPS_STEP) * TAPS_STEP
-        taps = decim * r_pad
+    r_pad = -(-(-(-k // decim)) // TAPS_STEP) * TAPS_STEP
     # phase rows of a warp's split: a row offset of 4 * ceil(8/D) words
     # mod 32 spreads the phases of one staged word run over the banks
     row_pad = (4 * -(-8 // decim)) % 32
@@ -163,14 +139,14 @@ def plan(spans: int, lanes: int, n: int, k: int, decim: int,
         rows_m = -(-(32 * r + r_pad) // 8) * 8
         spw = rows_m + (row_pad - rows_m) % 32
         raw = -(-((tile + r_pad) * decim * lanes * elem + 32) // 16) * 16
-        smem = _shared_bytes(decim, taps, raw, stages, warps, spw)
-        p = FirPlan(spans, lanes, n_out, r, tc, warps, tile, n_tiles, r_pad,
-                    taps, spw, raw, stages, smem, 0)
+        smem = _shared_bytes(decim, r_pad, raw, stages, warps, spw)
+        p = FirPlan(spans, lanes, n_out, r, warps, tile, n_tiles, r_pad,
+                    spw, raw, stages, smem, 0)
         return p._replace(grid=min(p.items, blocks_per_sm(p) * sms))
 
     r, chunks = 8, (MAX_WARPS if lanes == 1 else 1)
     if spans * -(-n_out // (chunks * 32 * r)) < sms:
-        r, chunks = (4 if tc else 1), 1
+        r, chunks = 1, 1
     # of the ring depths that fit, the one that lets the most blocks share
     # an SM, the deeper on a tie: at the paths' large shapes one stage and
     # more resident blocks ran faster than two or three (PERF.md)
@@ -247,29 +223,30 @@ def _spans(x: torch.Tensor) -> tuple[int, int, int, int, int]:
 _KINDS = {torch.float32: (0, torch.float32), torch.uint8: (1, torch.float32),
           torch.int8: (2, torch.int8)}
 
-#: which form the one-byte inputs (K1, K4) take: tensor cores, else CUDA
-#: cores
-ONE_BYTE_TC = True
-#: bring-up knobs: kernel flags (1 skip the products, 2 skip the split, 4
-#: split one-byte rows by window row) and a forced ring depth
-FLAGS = 0
-STAGES = None
 
 
 class _Recipe(NamedTuple):
     """What one layout of the operands needs per call, worked out once."""
 
     copy: bool                  # x must be made contiguous first
-    geometry: ctypes.Array      # the kernel's 22 integers (csrc)
+    geometry: ctypes.Array      # the kernel's 20 integers (csrc)
     y_shape: tuple
 
 
-# layout key (types, shapes, strides, decimation, device, form) -> _Recipe
+# layout key (types, shapes, strides, decimation, device) -> _Recipe
 _recipes: dict[tuple, _Recipe] = {}
 
 
 def _recipe(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
-            decim: int) -> _Recipe:
+            decim: int, view) -> _Recipe:
+    if view is not None:
+        v = view(x, h, state, decim)
+        copy = v.data_ptr() != x.data_ptr() or not _spans(v)[0]
+        x = v.contiguous() if copy else v
+    else:
+        copy = not _spans(x)[0]
+        if copy:
+            x = x.contiguous()
     _check(x, h, state, decim)
     if x.dtype not in _KINDS:
         raise TypeError(f"the FIR kernel takes float32, uint8 or int8 input, "
@@ -278,46 +255,43 @@ def _recipe(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
     if state.dtype != state_dtype:
         raise TypeError(f"{x.dtype} input takes a {state_dtype} state, got "
                         f"{state.dtype}")
-    copy = not _spans(x)[0]
-    spans, lanes, spo, os_, as_ = _spans(x.contiguous() if copy else x)
+    spans, lanes, spo, os_, as_ = _spans(x)
     k, n = h.shape[0], x.shape[-1]
     device = x.get_device()
-    p = plan(spans, lanes, n, k, decim, _sms(device), x.element_size(),
-             kind > 0 and ONE_BYTE_TC)
-    if STAGES is not None:
-        p = p._replace(stages=STAGES, smem=_shared_bytes(
-            decim, p.taps, p.raw, STAGES, p.warps, p.spw))
-        p = p._replace(grid=min(p.items, blocks_per_sm(p) * _sms(device)))
-    geometry = (ctypes.c_longlong * 23)(device, kind, spans, lanes, spo, n, k,
-                                        decim, os_, as_, *p[3:], FLAGS)
+    p = plan(spans, lanes, n, k, decim, _sms(device), x.element_size())
+    geometry = (ctypes.c_longlong * 20)(device, kind, spans, lanes, spo, n, k,
+                                        decim, os_, as_, *p[3:])
     return _Recipe(copy, geometry, tuple(x.shape[:-1]) + (n // decim,))
 
 
 def launch(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
-           decim: int) -> tuple[torch.Tensor, torch.Tensor]:
+           decim: int, view=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the FIR template on CUDA tensors: float32 input with a float32
     state (K5), uint8 with a float32 u8-normalized state (K1: x - 128
     times 2^-7), int8 with an int8 state (K4: times 2^-7).  Returns ``(y,
     new_state)``, both float32.  Raises on what the kernel does not take.
     Counts nothing: the public wrappers count.
 
-    The checks that follow from types, shapes and strides, the layout and
-    the launch plan are worked out once per layout (:func:`_recipe`); each
-    call checks the taps' type and the devices, allocates and launches."""
+    ``view(x, h, state, decim)``, when given, checks the operands and
+    returns the tensor the kernel reads (K1: the (..., 2, N) view of the
+    interleaved bytes); it runs when a layout is new, as do the checks
+    that follow from types, shapes and strides, the layout and the launch
+    plan (:func:`_recipe`).  Each call checks the taps' type and the
+    devices, allocates and launches."""
     device = x.get_device()
     key = (x.dtype, x.shape, x.stride(), state.dtype, state.shape,
-           state.stride(), h.shape, h.stride(), decim, device, ONE_BYTE_TC,
-           FLAGS, STAGES)
+           state.stride(), h.shape, h.stride(), decim, device, view)
     rec = _recipes.get(key)
     if rec is None:
         if len(_recipes) >= 256:
             _recipes.clear()
-        rec = _recipes[key] = _recipe(x, h, state, decim)
+        rec = _recipes[key] = _recipe(x, h, state, decim, view)
     if h.dtype != torch.float32 or not (
             h.get_device() == state.get_device() == device):
-        _check(x, h, state, decim)          # raises with the reason
+        _check(x if view is None else view(x, h, state, decim), h, state,
+               decim)                       # raises with the reason
     if rec.copy:
-        x = x.contiguous()
+        x = (x if view is None else view(x, h, state, decim)).contiguous()
     y = torch.empty(rec.y_shape, dtype=torch.float32, device=x.device)
     new_state = torch.empty(state.shape, dtype=torch.float32,
                             device=x.device)

@@ -58,6 +58,15 @@ def _check(iq_u8: torch.Tensor, h: torch.Tensor, st2: torch.Tensor,
                          f"of the decimation {decim}")
 
 
+def _checked_view(iq_u8: torch.Tensor, h: torch.Tensor, st2: torch.Tensor,
+                  decim: int) -> torch.Tensor:
+    """What K1's kernel reads, once the operands are checked: the (..., 2,
+    N) view of the interleaved bytes (element step 2).  The launch runs it
+    once per layout."""
+    _check(iq_u8, h, st2, decim)
+    return _deinterleave(iq_u8)
+
+
 def fir_frontend_u8_plain(iq_u8: torch.Tensor, h: torch.Tensor,
                           st2: torch.Tensor, decim: int
                           ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -73,15 +82,14 @@ def fir_frontend_u8(iq_u8: torch.Tensor, h: torch.Tensor, st2: torch.Tensor,
     """K1: the RF front-end FIR of raw u8 I/Q (see the module docstring).
 
     A CUDA tensor launches the u8 instance of the FIR template on the
-    (..., 2, N) view of the interleaved bytes, one launch that also writes
-    the new state; a CPU tensor takes the plain version; any other device
-    raises."""
+    (..., 2, N) view of the interleaved bytes (made, and the operands
+    checked, once per layout), one launch that also writes the new state;
+    a CPU tensor takes the plain version; any other device raises."""
     if iq_u8.device.type == "cpu":
         return fir_frontend_u8_plain(iq_u8, h, st2, decim)
     if iq_u8.device.type != "cuda":
         raise RuntimeError(f"no K1 kernel for device {iq_u8.device}")
-    _check(iq_u8, h, st2, decim)
-    out = fir_decim.launch(_deinterleave(iq_u8), h, st2, decim)
+    out = fir_decim.launch(iq_u8, h, st2, decim, view=_checked_view)
     fir_frontend_u8.launches += 1
     return out
 

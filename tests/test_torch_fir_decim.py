@@ -11,13 +11,6 @@ Tolerances:
   ``fir_frontend_u8_pallas``: 1e-5 (the TPU kernel's bf16 hi/lo weight
   split is ~2^-17 relative, the port keeps fp32 taps); tails equal.
 
-* The one-byte instances' tensor-core arithmetic (K1, K4 on the card),
-  emulated here in plain PyTorch: the u8 sample normalized by 2^-7 is exact
-  in TF32 and the taps are split hi = tf32(h), lo = tf32(h - hi); that
-  FIR holds against the float64 FIR of the same bytes within 1e-6 (the
-  split leaves ~2^-22 of each tap; the rest is the fp32 sums), against a
-  1e-5 gate.
-
 The CUDA kernels against these plain versions are in
 tests/test_torch_cuda.py.
 """
@@ -33,7 +26,7 @@ from sdr_tpu import config as cfg
 from sdr_tpu.golden import filters as gfilt
 from sdr_tpu.ops import pallas_fir
 from sdr_tpu.ops import pallas_fir_mxu as pfm
-from sdr_tpu_torch.ops import fir, fir_decim, fir_frontend
+from sdr_tpu_torch.ops import fir_decim, fir_frontend
 
 K5_ATOL = 2e-5
 K4_ATOL = 1e-5
@@ -163,60 +156,3 @@ def test_k4_plain_matches_pallas_chained(n, c):
             torch.from_numpy(u8), t32(h), ts, 10)
         assert_close(ty, jy, K4_ATOL)
         np.testing.assert_array_equal(np_of(ts), np_of(js))
-
-
-def _round_to(v: torch.Tensor, dtype: str) -> torch.Tensor:
-    """float32 ``v`` rounded to TF32 (to nearest, ties away from zero, as
-    ``cvt.rna.tf32.f32``) or to bf16 (to nearest even), as float32."""
-    if dtype == "bf16":
-        return v.to(torch.bfloat16).to(torch.float32)
-    bits = v.view(torch.int32)
-    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
-    return (mag | (bits & -0x80000000)).view(torch.float32)
-
-
-def _split_fir(x2: torch.Tensor, h: torch.Tensor, st: torch.Tensor,
-               dtype: str, parts: int) -> torch.Tensor:
-    """The FIR with the taps split into ``parts`` (1 or 2) of ``dtype``,
-    each part's product summed in fp32 and the two added last, as the
-    tensor-core form does."""
-    hi = _round_to(h, dtype)
-    y, _ = fir.fir_block_decim_mm(x2, hi, st, 10)
-    if parts == 2:
-        lo = _round_to(h - hi, dtype)
-        y = y + fir.fir_block_decim_mm(x2, lo, st, 10)[0]
-    return y
-
-
-@pytest.mark.parametrize("dtype,parts,within", [
-    ("tf32", 2, 1e-6),    # the tensor-core form of K1 and K4
-    ("tf32", 1, None),    # taps in TF32 alone: ~1e-4, fails the 1e-5 gate
-    ("bf16", 1, None),    # ~1e-3
-    ("bf16", 2, 1e-5),    # the TPU kernel's split: within the gate, but
-    #                       ~2e-6 from exact, 70x the TF32 pair's error
-])
-def test_tap_split_against_the_float64_fir(dtype, parts, within):
-    """Random u8 at K=151, D=10 (the mode-0 front-end), both arms: the FIR
-    with split taps against the float64 FIR of the normalized bytes.  The
-    exact bytes leave the TF32 pair the taps' ~3e-8 and the fp32 sums'
-    ~1e-7, inside 1e-6; one TF32 or bf16 part misses the 1e-5 gate; the
-    two-way bf16
-    split (the TPU kernel's) leaves sum |h - hi - lo| = 3.9e-6, so it stays
-    inside 1e-5 on one block but not inside 1e-6, where the TF32 pair
-    does."""
-    rng = np.random.default_rng(151)
-    h = _taps(cfg.get_mode_config(0).rf_fs, cfg.RF_FC_HZ)
-    u8 = rng.integers(0, 256, size=(1, 2 * 5760), dtype=np.uint8)
-    st = np.zeros((1, 2, 150), np.float32)
-    x2 = fir_frontend.normalize_u8(torch.from_numpy(u8)).reshape(
-        1, 5760, 2).movedim(-1, -2)
-    y = _split_fir(x2, t32(h), t32(st), dtype, parts)
-    x = (u8[0].astype(np.float64) - 128.0) / 128.0
-    err = max(np.abs(np_of(y[0, a]) - gfilt.block_fir_decim(
-        x[a::2], h.astype(np.float64), np.zeros(150), 10)[0]).max()
-        for a in range(2))
-    if within is None:
-        assert err > K4_ATOL
-    else:
-        assert err < within
-        assert (err > 1e-6) == (dtype == "bf16")

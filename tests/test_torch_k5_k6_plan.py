@@ -70,7 +70,7 @@ def test_k5_plan_fits_and_fills_the_card(decim, k, c, lanes, n):
     spans = c if lanes == 2 else 2 * c
     p = fir_decim.plan(spans, lanes, n, k, decim, SMS)
     assert p.smem <= fir_decim.MAX_SHARED
-    assert p.smem == fir_decim._shared_bytes(decim, p.taps, p.raw, p.stages,
+    assert p.smem == fir_decim._shared_bytes(decim, p.r_pad, p.raw, p.stages,
                                              p.warps, p.spw)
     # the blocks that share an SM, and the grid
     assert p.stages in (1, 2, 3)
@@ -142,16 +142,15 @@ def _one_byte_plan(dtype: str, c: int, n: int, k: int, decim: int
                    ) -> fir_decim.FirPlan:
     """The plan the wrapper makes for ``c`` channels of ``n`` I/Q pairs."""
     lanes = ONE_BYTE[dtype]
-    return fir_decim.plan(c * (3 - lanes), lanes, n, k, decim, SMS, 1,
-                          fir_decim.ONE_BYTE_TC)
+    return fir_decim.plan(c * (3 - lanes), lanes, n, k, decim, SMS, 1)
 
 
 @pytest.mark.parametrize("dtype", ["u8", "int8"])
 @pytest.mark.parametrize("decim", [3, 10])
-@pytest.mark.parametrize("c", [1, 7, 64])
+@pytest.mark.parametrize("c", [1, 7, 512])
 def test_one_byte_plan_covers_every_output_once(dtype, decim, c):
-    """Ragged blocks and a block shorter than K-1, at C = 1, 7 (the small
-    plan) and 64 (the large one)."""
+    """Ragged blocks and a block shorter than K-1, at C = 1, 7 (R = 1) and
+    512 (R = 8)."""
     for n_out in (5_767, 150 // decim - 3, 1):
         p = _one_byte_plan(dtype, c, n_out * decim, 151, decim)
         assert (_covered(p) == 1).all(), (n_out, p)
@@ -168,36 +167,27 @@ def test_one_byte_plan_fits_and_fills_the_card(dtype, k, decim, c, n):
     n -= n % decim
     p = _one_byte_plan(dtype, c, n, k, decim)
     assert p.smem <= fir_decim.MAX_SHARED
-    assert p.smem == fir_decim._shared_bytes(decim, p.taps, p.raw, p.stages,
+    assert p.smem == fir_decim._shared_bytes(decim, p.r_pad, p.raw, p.stages,
                                              p.warps, p.spw)
     per_sm = fir_decim.blocks_per_sm(p)
     assert per_sm * (p.smem + 1024) <= fir_decim.SM_SHARED
     assert p.grid == min(p.items, per_sm * SMS)
     assert p.raw % 16 == 0
     assert p.raw >= (p.tile + p.r_pad) * decim * p.lanes + 32
-    r_rows = -(-k // decim)
-    if p.tc:
-        # k-steps of 8 cover a phase's taps under every column of a tile
-        assert p.r_pad % 8 == 0 and p.r_pad + 8 >= r_rows + 7
-        assert p.taps == decim * (p.r_pad // 8 + 1) * 128
-    else:
-        assert p.r_pad % fir_decim.TAPS_STEP == 0 and p.r_pad >= r_rows
-        assert p.taps == decim * p.r_pad
+    assert p.r_pad % fir_decim.TAPS_STEP == 0 and p.r_pad * decim >= k
     assert p.spw % 4 == 0 and p.spw >= 32 * p.r + p.r_pad
+    assert p.tile == 32 * p.r * (p.warps // p.lanes)
 
 
 @pytest.mark.parametrize("dtype", ["u8", "int8"])
 def test_one_byte_plan_spreads_a_single_channel(dtype):
     """At C=1 (``receive()`` and the CLI) the mode-0 block of K=151, D=10
-    spreads over more work items than one per 128 outputs of an arm's
-    5,760, and the large shapes keep two-tile (R = 8) warps."""
+    spreads over more work items, and blocks, than the card's 132 SMs
+    (the first K1 took 23 blocks); C=512 keeps R = 8."""
     small = _one_byte_plan(dtype, 1, 57_600, 151, 10)
     big = _one_byte_plan(dtype, 512, 57_600, 151, 10)
     assert big.r == 8 and big.grid >= SMS
-    assert small.r < 8
-    assert small.items >= -(-5_760 // 128) * (3 - small.lanes)
-    if not small.tc:
-        assert small.items > SMS
+    assert small.r == 1 and small.items > SMS and small.grid > SMS
 
 
 @pytest.mark.parametrize("dtype", ["u8", "int8"])
