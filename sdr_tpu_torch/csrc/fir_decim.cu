@@ -95,14 +95,27 @@ constexpr int kMaxShared = 232448;
 constexpr int kMaxDevices = 64;
 constexpr float kScale = 0.0078125f;  // 2^-7
 
+// 2^23 + byte `sel` of w as a float: the byte placed in the low mantissa
+// bits of 2^23 by one byte permute (no int-to-float conversion, which runs
+// at a fraction of the FP32 rate); subtracting kBias leaves byte - 128.
+__device__ __forceinline__ float biased(uint32_t w, uint32_t sel) {
+  return __int_as_float(__byte_perm(w, 0x4B000000u, sel));
+}
+constexpr float kBias = 8388736.0f;  // 2^23 + 128
+constexpr uint32_t kLo = 0x7440, kHi = 0x7441;  // byte 0 or 1 of w
+
 // The input types: an element of x and of the state as the split holds
-// them (x, s), the same normalized for the new state (x_out, s_out), and
-// the factor on the taps (kTap) that makes up the difference.
+// them (x; x2 for an aligned pair of elements, both arms of interleaved
+// I/Q; s), the same normalized for the new state (x_out, s_out), and the
+// factor on the taps (kTap) that makes up the difference.
 struct F32In {
   using T = float;
   using S = float;
   static constexpr float kTap = 1.0f;
   static __device__ __forceinline__ float x(float v) { return v; }
+  static __device__ __forceinline__ float2 x2(const float* q) {
+    return *reinterpret_cast<const float2*>(q);
+  }
   static __device__ __forceinline__ float s(float v) { return v; }
   static __device__ __forceinline__ float x_out(float v) { return v; }
   static __device__ __forceinline__ float s_out(float v) { return v; }
@@ -112,7 +125,11 @@ struct U8In {  // raw SDR bytes as u8 - 128; the state normalized
   using S = float;
   static constexpr float kTap = kScale;
   static __device__ __forceinline__ float x(uint8_t v) {
-    return static_cast<float>(static_cast<int>(v) - 128);
+    return biased(v, kLo) - kBias;
+  }
+  static __device__ __forceinline__ float2 x2(const uint8_t* q) {
+    const uint32_t w = *reinterpret_cast<const uint16_t*>(q);
+    return make_float2(biased(w, kLo) - kBias, biased(w, kHi) - kBias);
   }
   static __device__ __forceinline__ float s(float v) { return v * 128.0f; }
   static __device__ __forceinline__ float x_out(uint8_t v) {
@@ -120,27 +137,24 @@ struct U8In {  // raw SDR bytes as u8 - 128; the state normalized
   }
   static __device__ __forceinline__ float s_out(float v) { return v; }
 };
-struct I8In {  // bias-flipped bytes, the state as int8 too
+struct I8In {  // bias-flipped bytes (u8 ^ 0x80), the state as int8 too
   using T = int8_t;
   using S = int8_t;
   static constexpr float kTap = kScale;
   static __device__ __forceinline__ float x(int8_t v) {
-    return static_cast<float>(v);
+    return biased(static_cast<uint8_t>(v) ^ 0x80u, kLo) - kBias;
   }
-  static __device__ __forceinline__ float s(int8_t v) {
-    return static_cast<float>(v);
+  static __device__ __forceinline__ float2 x2(const int8_t* q) {
+    const uint32_t w = *reinterpret_cast<const uint16_t*>(q) ^ 0x8080u;
+    return make_float2(biased(w, kLo) - kBias, biased(w, kHi) - kBias);
   }
+  static __device__ __forceinline__ float s(int8_t v) { return x(v); }
   static __device__ __forceinline__ float x_out(int8_t v) {
     return x(v) * kScale;
   }
   static __device__ __forceinline__ float s_out(int8_t v) {
-    return s(v) * kScale;
+    return x(v) * kScale;
   }
-};
-
-template <class T>
-struct alignas(2 * sizeof(T)) Pair {
-  T a, b;
 };
 
 // Where a launch's data lies and how it is cut (ops/fir_decim.py: the
@@ -231,9 +245,7 @@ __device__ __forceinline__ void split_rows(
       if (ARMS == 1) {
         v.x = In::x(src[i * f.lanes]);
       } else if (pairs) {
-        const Pair<T> q = *reinterpret_cast<const Pair<T>*>(src + 2 * i);
-        v.x = In::x(q.a);
-        v.y = In::x(q.b);
+        v = In::x2(src + 2 * i);
       } else {
         v.x = In::x(src[2 * i]);
         v.y = In::x(src[2 * i + 1]);

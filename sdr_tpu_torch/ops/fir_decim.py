@@ -233,7 +233,7 @@ class _Recipe(NamedTuple):
     y_shape: tuple
 
 
-# layout key (types, shapes, strides, decimation, device) -> _Recipe
+# layout key (types, shapes, strides, decimation, devices) -> _Recipe
 _recipes: dict[tuple, _Recipe] = {}
 
 
@@ -274,22 +274,18 @@ def launch(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
 
     ``view(x, h, state, decim)``, when given, checks the operands and
     returns the tensor the kernel reads (K1: the (..., 2, N) view of the
-    interleaved bytes); it runs when a layout is new, as do the checks
-    that follow from types, shapes and strides, the layout and the launch
-    plan (:func:`_recipe`).  Each call checks the taps' type and the
-    devices, allocates and launches."""
+    interleaved bytes).  It runs when a layout (types, shapes, strides,
+    devices) is new, as do the checks and the launch plan
+    (:func:`_recipe`); a known layout only allocates and launches."""
     device = x.get_device()
     key = (x.dtype, x.shape, x.stride(), state.dtype, state.shape,
-           state.stride(), h.shape, h.stride(), decim, device, view)
+           state.stride(), h.dtype, h.shape, h.stride(), decim, device,
+           state.get_device(), h.get_device(), view)
     rec = _recipes.get(key)
     if rec is None:
         if len(_recipes) >= 256:
             _recipes.clear()
         rec = _recipes[key] = _recipe(x, h, state, decim, view)
-    if h.dtype != torch.float32 or not (
-            h.get_device() == state.get_device() == device):
-        _check(x if view is None else view(x, h, state, decim), h, state,
-               decim)                       # raises with the reason
     if rec.copy:
         x = (x if view is None else view(x, h, state, decim)).contiguous()
     y = torch.empty(rec.y_shape, dtype=torch.float32, device=x.device)
