@@ -13,10 +13,9 @@
 // sample is split as the exact integer u8 - 128 or int8, and the 2^-7 is
 // folded into the taps (h * 2^-7 times the integer is the same product as
 // h times the normalized sample, so the sums are the same bit for bit).
-// This is the
-// TPU kernels' function, not their block structure: their polyphase VMEM
-// tiling, halo views and bf16 hi/lo weight split are TPU layout and are
-// not carried over.  Polyphase: with u = q*D + p, output j is sum_p sum_q
+// This is the TPU kernels' function, not their block structure: their
+// polyphase VMEM tiling, halo views and bf16 hi/lo weight split are TPU
+// layout and are not carried over.  Polyphase: with u = q*D + p, output j is sum_p sum_q
 // hp[p, q] * sp[p, j + q], hp[p, q] = h[K-1 - q*D - p] (zero past h[0])
 // and sp[p, m] = xc[m*D + p]: r_rows = ceil(K/D) taps per phase.
 //
@@ -51,8 +50,8 @@
 //   32*R outputs of one arm of the item and splits its part of the staged
 //   span by phase into its own float buffer: the deinterleave and the
 //   conversion (u8: the exact x - 128) happen here, four loads in flight a
-//   lane; it releases the stage and computes from its buffer
-//   while the producer loads the next item.  The ring depth (1-3) is the
+//   lane; it releases the stage and computes from its buffer while the
+//   producer loads the next item.  The ring depth (1-3) is the
 //   plan's: at the paths' large shapes one stage with more blocks resident
 //   ran faster than two stages with fewer (PERF.md).
 // * The interleaved front-end.  The receiver's I/Q block (u8 or float) is
@@ -64,17 +63,17 @@
 //   new f32 state, the last K-1 samples of [state, x] converted as the
 //   FIR reads them, into its own output (a block shorter than K-1 keeps
 //   part of the old state), so one call is one launch.
-// * The geometry (R, warps, tile, stages, shared bytes, grid) is
-//   a pure function of the shape, computed in Python (ops/fir_decim.py,
-//   plan) and passed in; the kernel checks only what would fault.  All of
+// * The geometry (R, warps, tile, stages, shared bytes, grid) is a pure
+//   function of the shape, computed in Python (ops/fir_decim.py, plan)
+//   and passed in; the kernel checks only what would fault.  All of
 //   the SM's unified L1/shared memory goes to shared memory, so that the
 //   plan's blocks fit.
 //
 // Summation order: an output's sum never depends on the plan: by phase p =
 // 0..D-1, then by tap q = 0..r_pad-1 within the phase, for R = 8 and R = 1
 // alike (padded taps add exact zeros).  So a row gives bit-identical
-// output at any batch size.  The plain version sums
-// another order: within 1e-5.  The state is copied, so it is bit-equal to
+// output at any batch size.  The plain version sums another order: within
+// 1e-5.  The state is copied, so it is bit-equal to
 // the plain version's.
 //
 // The library is built with --fmad=false for the PLL kernels; the
@@ -95,27 +94,14 @@ constexpr int kMaxShared = 232448;
 constexpr int kMaxDevices = 64;
 constexpr float kScale = 0.0078125f;  // 2^-7
 
-// 2^23 + byte `sel` of w as a float: the byte placed in the low mantissa
-// bits of 2^23 by one byte permute (no int-to-float conversion, which runs
-// at a fraction of the FP32 rate); subtracting kBias leaves byte - 128.
-__device__ __forceinline__ float biased(uint32_t w, uint32_t sel) {
-  return __int_as_float(__byte_perm(w, 0x4B000000u, sel));
-}
-constexpr float kBias = 8388736.0f;  // 2^23 + 128
-constexpr uint32_t kLo = 0x7440, kHi = 0x7441;  // byte 0 or 1 of w
-
 // The input types: an element of x and of the state as the split holds
-// them (x; x2 for an aligned pair of elements, both arms of interleaved
-// I/Q; s), the same normalized for the new state (x_out, s_out), and the
-// factor on the taps (kTap) that makes up the difference.
+// them (x, s), the same normalized for the new state (x_out, s_out), and
+// the factor on the taps (kTap) that makes up the difference.
 struct F32In {
   using T = float;
   using S = float;
   static constexpr float kTap = 1.0f;
   static __device__ __forceinline__ float x(float v) { return v; }
-  static __device__ __forceinline__ float2 x2(const float* q) {
-    return *reinterpret_cast<const float2*>(q);
-  }
   static __device__ __forceinline__ float s(float v) { return v; }
   static __device__ __forceinline__ float x_out(float v) { return v; }
   static __device__ __forceinline__ float s_out(float v) { return v; }
@@ -125,11 +111,7 @@ struct U8In {  // raw SDR bytes as u8 - 128; the state normalized
   using S = float;
   static constexpr float kTap = kScale;
   static __device__ __forceinline__ float x(uint8_t v) {
-    return biased(v, kLo) - kBias;
-  }
-  static __device__ __forceinline__ float2 x2(const uint8_t* q) {
-    const uint32_t w = *reinterpret_cast<const uint16_t*>(q);
-    return make_float2(biased(w, kLo) - kBias, biased(w, kHi) - kBias);
+    return static_cast<float>(static_cast<int>(v) - 128);
   }
   static __device__ __forceinline__ float s(float v) { return v * 128.0f; }
   static __device__ __forceinline__ float x_out(uint8_t v) {
@@ -137,24 +119,27 @@ struct U8In {  // raw SDR bytes as u8 - 128; the state normalized
   }
   static __device__ __forceinline__ float s_out(float v) { return v; }
 };
-struct I8In {  // bias-flipped bytes (u8 ^ 0x80), the state as int8 too
+struct I8In {  // bias-flipped bytes, the state as int8 too
   using T = int8_t;
   using S = int8_t;
   static constexpr float kTap = kScale;
   static __device__ __forceinline__ float x(int8_t v) {
-    return biased(static_cast<uint8_t>(v) ^ 0x80u, kLo) - kBias;
+    return static_cast<float>(v);
   }
-  static __device__ __forceinline__ float2 x2(const int8_t* q) {
-    const uint32_t w = *reinterpret_cast<const uint16_t*>(q) ^ 0x8080u;
-    return make_float2(biased(w, kLo) - kBias, biased(w, kHi) - kBias);
+  static __device__ __forceinline__ float s(int8_t v) {
+    return static_cast<float>(v);
   }
-  static __device__ __forceinline__ float s(int8_t v) { return x(v); }
   static __device__ __forceinline__ float x_out(int8_t v) {
     return x(v) * kScale;
   }
   static __device__ __forceinline__ float s_out(int8_t v) {
-    return x(v) * kScale;
+    return s(v) * kScale;
   }
+};
+
+template <class T>
+struct alignas(2 * sizeof(T)) Pair {
+  T a, b;
 };
 
 // Where a launch's data lies and how it is cut (ops/fir_decim.py: the
@@ -245,7 +230,9 @@ __device__ __forceinline__ void split_rows(
       if (ARMS == 1) {
         v.x = In::x(src[i * f.lanes]);
       } else if (pairs) {
-        v = In::x2(src + 2 * i);
+        const Pair<T> q = *reinterpret_cast<const Pair<T>*>(src + 2 * i);
+        v.x = In::x(q.a);
+        v.y = In::x(q.b);
       } else {
         v.x = In::x(src[2 * i]);
         v.y = In::x(src[2 * i + 1]);
@@ -386,7 +373,7 @@ __device__ __forceinline__ float phase_tap(const float* h, int km1, int decim,
   return (u >= 0 && t >= 0) ? h[t] : 0.0f;
 }
 
-// --- the kernel ----------------------------------------------------------------
+// --- the kernel --------------------------------------------------------------
 
 template <int R, class In>
 __global__ void __launch_bounds__(32 * (1 + kMaxWarps))

@@ -11,8 +11,9 @@ machine, from the repository root:
 Tolerances: K1, K4 and K5 at 1e-5 (two fp32 summation orders; the
 carried tails are exact and must be equal; the kernels write their own,
 K5's held to ``tail()``), K1 and K4 also at odd tap counts and
-decimations, and row 0 of a batch bit-equal to the row alone; K2/K3 bit-equal (torch.equal
-on outputs and carries, every rounding explicit on both sides), over
+decimations, and row 0 of a batch bit-equal to the row alone; K2/K3
+bit-equal (torch.equal on outputs and carries, every rounding explicit on
+both sides), over
 chained blocks at the main path's shapes and at ragged lane and step
 counts, and the chain floor bit-equal to K2's recurrence; the receiver on
 the card (u8 input: K1; float input: K5) against the receiver on the CPU
