@@ -39,7 +39,16 @@ Phases, one line of output each (any failure raises and exits non-zero):
    against a contiguous ``Receiver.run`` on the card, then its chunked
    variant (bit-equal), a ``channel_sharded_run`` of 8 channels over two
    shards of the card, and, with two or more cards, the same time-sharded
-   run across two cards.  Stereo separation and RDS info words are
+   run across two cards; (e) the mesh spanning 2 processes on cuda:0
+   (``multihost.setup``, gloo), through
+   ``scripts/torch_multihost_scaling.py``: the C=512 u8 batch as
+   2 x 256 channels (K1, K3 in each process) against one-process runs of
+   the same rows, and (d)'s station time-sharded over 2 processes x 4
+   shards, the halo inside each process (K6's row-block entry, K5, K2)
+   and across the process edge (point-to-point), each row held to the
+   JAX package's gates against a contiguous run, and the edge exchange's
+   time per call printed beside K6's; every process must exit 0 within
+   its timeout.  Stereo separation and RDS info words are
    checked against what each station transmitted;
 4. timing with CUDA events: block time and IQ rate at C=1 and C=512, the
    wideband block (channelizer + receiver) at C=2 and C=64, each kernel
@@ -64,12 +73,13 @@ plain, bound and library-call milliseconds), and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import importlib.util
 import json
-import math
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -86,10 +96,12 @@ from sdr_tpu_torch.ops import fir_decim, fir_frontend, pll_cuda
 from sdr_tpu_torch.ops import pll as tpll
 from sdr_tpu_torch.parallel import (Mesh, assemble_time_chunks,
                                     channel_sharded_run, default_block_if,
-                                    gather_channels, time_sharded_receive,
+                                    gather_channels, halo_raw,
+                                    time_sharded_receive,
                                     time_sharded_receive_chunked)
 from sdr_tpu_torch.parallel import halo as khalo
 from sdr_tpu_torch.utils import synth
+from sdr_tpu_torch.utils.metrics import stereo_separation_db
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"     # captures and CLI outputs
@@ -116,6 +128,8 @@ SHARD0_ATOL = 1e-2   # shard 0's left channel against contiguous
 RELOCK_RMS = 1e-4    # left after RELOCK_SKIP: RMS error / reference RMS
 RELOCK_SKIP = 8000   # audio samples (tests/test_parallel.py)
 SHARDS = 8
+MP_PROCS = 2             # processes of the multi-process phase, on cuda:0
+MP_TIMEOUT_S = 300.0     # each of its configurations
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # float operations of one step of one PLL lane as csrc/pll.cu writes them:
@@ -499,7 +513,7 @@ def check_k6(rng) -> dict:
     as views of one buffer, S=8 separate buffers with C=1 and C=4 rows, an
     odd halo, a 2 x 4 channel x time grid."""
     mc = cfg.get_mode_config(MODE)
-    halo = 2 * default_block_if(mc, True) * 2 * mc.rf_decim    # 230,400
+    halo = halo_raw(mc, default_block_if(mc, True))             # 230,400
     k6 = khalo.halo_shift_right
     rows_before = k6.row_block_launches
     cases = {}
@@ -564,21 +578,6 @@ def _read_counts(path: str, need: tuple[str, ...]) -> dict:
     return launches
 
 
-def _tone_power(x: np.ndarray, fs: float, f: float) -> float:
-    t = np.arange(len(x)) / fs
-    return float(np.abs(np.mean(x * np.exp(-2j * np.pi * f * t))) ** 2)
-
-
-def _separation_db(left, right, fs, tone_l, tone_r, skip=6000):
-    l, r = np.asarray(left, np.float64)[skip:], np.asarray(right,
-                                                           np.float64)[skip:]
-    sep_l = _tone_power(l, fs, tone_l) / max(_tone_power(l, fs, tone_r),
-                                             1e-30)
-    sep_r = _tone_power(r, fs, tone_r) / max(_tone_power(r, fs, tone_l),
-                                             1e-30)
-    return 10 * math.log10(sep_l), 10 * math.log10(sep_r)
-
-
 def _serving_batch(iq_u8: np.ndarray, c: int, n_bytes: int, rng):
     """(c, n_bytes): channel 0 is the start of the capture, the others the
     same station from random whole-I/Q-pair offsets."""
@@ -603,8 +602,8 @@ def phase_main_path(rng) -> dict:
     launches = _read_counts("main path", ("fir_frontend_u8", "pll_angles",
                                           "pll_mixer"))
 
-    sep_l, sep_r = _separation_db(out.left, out.right, mc.audio_fs, 800.0,
-                                  1500.0)
+    sep_l, sep_r = stereo_separation_db(out.left, out.right, mc.audio_fs,
+                                        800.0, 1500.0)
     if not (np.all(np.isfinite(out.left)) and sep_l > SEP_DB
             and sep_r > SEP_DB):
         raise AssertionError(f"stereo separation L {sep_l:.1f} dB, R "
@@ -657,7 +656,8 @@ def _check_station(label: str, wav: Path, dec, sent_groups, tone_l: float,
     of every RDS group the CLI decoded was transmitted to this station."""
     mc = cfg.get_mode_config(MODE)
     left, right = _read_wav(wav)
-    sep_l, sep_r = _separation_db(left, right, mc.audio_fs, tone_l, tone_r)
+    sep_l, sep_r = stereo_separation_db(left, right, mc.audio_fs, tone_l,
+                                        tone_r)
     if not (len(left) > 0.9 * mc.audio_fs and sep_l > SEP_DB
             and sep_r > SEP_DB):
         raise AssertionError(f"{label}: {len(left)} samples, separation L "
@@ -731,15 +731,15 @@ def phase_cli(res) -> dict:
             "per_block": wide["fir_decim_f32"] / blocks}
 
 
-def _sharded_gates(label: str, out, ref) -> str:
-    """The JAX package's gates for a time-sharded run against a contiguous
-    one: linear arms within LINEAR_ATOL, shard 0's left within SHARD0_ATOL,
-    the left channel's RMS error after RELOCK_SKIP samples below RELOCK_RMS
-    of the reference RMS."""
+def _sharded_gates(label: str, out, ref, shards: int = SHARDS) -> str:
+    """The JAX package's gates for a time-sharded run of ``shards`` shards
+    against a contiguous one: linear arms within LINEAR_ATOL, shard 0's
+    left within SHARD0_ATOL, the left channel's RMS error after
+    RELOCK_SKIP samples below RELOCK_RMS of the reference RMS."""
     errs = {a: max_err(getattr(out, a), getattr(ref, a).reshape(-1))
             for a in ("fm_demod", "mono")}
     left, ref_left = out.left.cpu().numpy(), ref.left.reshape(-1).cpu().numpy()
-    first = len(ref_left) // SHARDS
+    first = len(ref_left) // shards
     err0 = float(np.abs(left[:first] - ref_left[:first]).max())
     d = left[RELOCK_SKIP:] - ref_left[RELOCK_SKIP:]
     rel = float(np.sqrt(np.mean(d ** 2))
@@ -754,6 +754,30 @@ def _sharded_gates(label: str, out, ref) -> str:
             f"(atol {LINEAR_ATOL}); shard 0 left {err0:.3g} (atol "
             f"{SHARD0_ATOL}); relock RMS {rel:.3g} of the reference "
             f"(< {RELOCK_RMS})")
+
+
+def _station_gates(label: str, out, sent_groups, need_words: int) -> str:
+    """Stereo separation above SEP_DB at the synthesized tones, and every
+    RDS info word decoded from the soft symbols transmitted, at least
+    ``need_words`` of them."""
+    mc = cfg.get_mode_config(MODE)
+    sep_l, sep_r = stereo_separation_db(out.left.cpu().numpy(),
+                                        out.right.cpu().numpy(), mc.audio_fs,
+                                        800.0, 1500.0)
+    if not sep_l > SEP_DB or not sep_r > SEP_DB:
+        raise AssertionError(f"{label} separation L {sep_l:.1f} dB, R "
+                             f"{sep_r:.1f} dB (need > {SEP_DB})")
+    dec = rds_decode.decode_robust(out.rds_symbols.cpu().numpy(),
+                                   mc.rds.sps)
+    sent = {tuple(w) for g in sent_groups for w in g}
+    words = [tuple(w) for w in dec.info_words]
+    hits = sum(w in sent for w in words)
+    if hits != len(words) or len(words) < need_words:
+        raise AssertionError(f"{label} RDS: {hits} of {len(words)} info "
+                             f"words were transmitted; need all, and >= "
+                             f"{need_words}")
+    return (f"separation L {sep_l:.1f} dB, R {sep_r:.1f} dB; RDS "
+            f"{len(words)} frames, all info words transmitted")
 
 
 def phase_time_sharded(rng) -> dict:
@@ -779,27 +803,13 @@ def phase_time_sharded(rng) -> dict:
     ref = rx.Receiver(MODE, stereo=True, with_rds=True,
                       device="cuda").run(iq, block_size=block_raw)
     gates = _sharded_gates("time-sharded", out, ref)
-    sep_l, sep_r = _separation_db(out.left.cpu().numpy(),
-                                  out.right.cpu().numpy(), mc.audio_fs,
-                                  800.0, 1500.0)
-    if not sep_l > SEP_DB or not sep_r > SEP_DB:
-        raise AssertionError(f"time-sharded separation L {sep_l:.1f} dB, R "
-                             f"{sep_r:.1f} dB (need > {SEP_DB})")
-    dec = rds_decode.decode_robust(out.rds_symbols.cpu().numpy(),
-                                   mc.rds.sps)
-    sent = {tuple(w) for g in res.rds_info_bits for w in g}
-    words = [tuple(w) for w in dec.info_words]
     n_groups = len(res.rds_info_bits)
-    hits = sum(w in sent for w in words)
-    if hits != len(words) or len(words) < n_groups:
-        raise AssertionError(f"time-sharded RDS: {hits} of {len(words)} info "
-                             f"words were transmitted; need all, and >= "
-                             f"{n_groups}")
+    station = _station_gates("time-sharded", out, res.rds_info_bits,
+                             n_groups)
     print(f"time-sharded path: 4 s capture, {SHARDS} shards x 20 blocks on "
-          f"cuda:0 vs contiguous on the card: {gates}; separation L "
-          f"{sep_l:.1f} dB, R {sep_r:.1f} dB; RDS {len(words)} frames, all "
-          f"info words transmitted ({n_groups} groups sent); launches "
-          f"{launches}, K6 through the row-block entry {row_blocks}")
+          f"cuda:0 vs contiguous on the card: {gates}; {station} "
+          f"({n_groups} groups sent); launches {launches}, K6 through the "
+          f"row-block entry {row_blocks}")
 
     chunks = list(time_sharded_receive_chunked(iq, mesh, MODE, stereo=True,
                                                with_rds=True, chunk_blocks=7))
@@ -847,7 +857,128 @@ def phase_time_sharded(rng) -> dict:
               + _sharded_gates("two cards", out2, ref))
     else:
         print("time-sharded across two cards: not run (1 CUDA device)")
-    return {"launches": launches, "calls": 1}
+    return {"launches": launches, "calls": 1, "capture": res}
+
+
+def _scaling():
+    """``scripts/torch_multihost_scaling.py``, loaded as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_multihost_scaling",
+        ROOT / "scripts" / "torch_multihost_scaling.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _children_ran(label: str, results: list, need: tuple[str, ...]) -> list:
+    """Each process's launch counts (set to 0 just before its run of the
+    path, read just after); raises when a kernel of the path (``need``)
+    never ran in one."""
+    for r in results:
+        if min(r["launches"][name] for name in need) == 0:
+            raise AssertionError(f"{label}: process {r['process_id']}: a "
+                                 f"kernel of the path never ran: "
+                                 f"{r['launches']}")
+    return [{k: v for k, v in r["launches"].items() if v}
+            for r in results]
+
+
+def phase_multi_process(main_res, sharded_res) -> None:
+    """Path (e): the mesh spanning MP_PROCS processes on cuda:0, joined by
+    ``multihost.setup`` (gloo: two processes share the card), through
+    ``scripts/torch_multihost_scaling.py``: (a) the C=512 mode-0
+    stereo+RDS u8 batch as 2 x 256 channels, 4 blocks, each process's rows
+    against a one-process run of the same rows; (b) a capture of (d)'s
+    station in 2 rows, 4 shards of 20 blocks in each process, the halo
+    inside each process; (c) the same signal in 4 rows of 2 shards, every
+    time row across the process edge.  (b) and (c) are held to the JAX
+    package's gates against a contiguous run of each row on the card, to
+    the stereo separation and to the transmitted RDS words."""
+    mod = _scaling()
+    mc = cfg.get_mode_config(MODE)
+    work = WORK / "multi_process"
+    work.mkdir(parents=True, exist_ok=True)
+    bs = mc.default_block_size(True)
+    cap = work / "channels.npz"
+    mod.write_capture(cap, main_res.iq_u8, 512, 4 * bs)
+    ra = mod.run_config(work / "channel", MP_PROCS, 1, device="cuda",
+                        ch_per_proc=256, rds=True, blocks=4, rounds=3,
+                        capture=cap, timeout_s=MP_TIMEOUT_S)
+    launches = _children_ran("multi-process channel mesh", ra["results"],
+                             ("fir_frontend_u8", "pll_mixer"))
+    errs = {a: max(r["max_abs_err_vs_one_process"][a] for r in ra["results"])
+            for a in ARM_ATOL}
+    if ra["backend"] != "gloo" or not all(errs[a] <= ARM_ATOL[a]
+                                          for a in ARM_ATOL):
+        raise AssertionError(f"multi-process channel mesh ({ra['backend']}):"
+                             f" max err {errs} (atol {ARM_ATOL})")
+    print(f"multi-process (a) channel mesh: {MP_PROCS} processes on cuda:0 "
+          f"({ra['backend']}), C=512 raw u8 as 2 x 256, 4 blocks; each "
+          "process's rows vs a one-process run of the same rows: max abs err "
+          + ", ".join(f"{a} {e:.3g} (atol {ARM_ATOL[a]})"
+                      for a, e in errs.items())
+          + f"; {ra['aggregate_samples_per_s'] / 1e6:.2f} IQ Msamples/s "
+          f"summed over the processes (host clock, best of 3); launches "
+          f"{launches}")
+
+    block_raw = default_block_if(mc, True) * 2 * mc.rf_decim
+    n = 80 * block_raw
+    cap = work / "station.npz"
+    mod.write_capture(cap, sharded_res.iq_u8, 4, n)
+    iq_rows = synth.u8_to_float(mod.capture_rows(cap, range(4)))
+    refs = [rx.Receiver(MODE, stereo=True, with_rds=True, device="cuda").run(
+        row, block_size=block_raw) for row in iq_rows]
+    # RDS: 1187.5 bit/s in groups of 104 bits
+    need_words = int(n / 2 / mc.rf_fs * 1187.5 / 104)
+    timing = {}
+    for label, cross, blocks, edge_messages in (
+            ("(b) time axis, halo inside each process", False, 20, 0),
+            ("(c) time axis, halo across the process edge", True, 40, 4)):
+        out_dir = work / ("cross" if cross else "local")
+        r = mod.run_time_axis(out_dir, MP_PROCS, 4, device="cuda",
+                              cross=cross, rds=True, blocks=blocks,
+                              rounds=3, reps=20, capture=cap,
+                              save_outputs=True, timeout_s=MP_TIMEOUT_S)
+        launches = _children_ran(
+            f"multi-process {label}", r["results"],
+            ("fir_decim_f32", "pll_angles", "halo_shift_right"))
+        ok_edges = all(res["edge_messages"] == edge_messages
+                       and (cross or res["launches"]["halo_row_blocks"])
+                       for res in r["results"])
+        if r["backend"] != "gloo" or r["halo_intra_process"] == cross \
+                or not ok_edges:
+            raise AssertionError(f"multi-process {label}: backend "
+                                 f"{r['backend']}, halo inside the process "
+                                 f"{r['halo_intra_process']}, launches "
+                                 f"{launches}")
+        full = np.load(out_dir / "outputs.npz")
+        shards = r["mesh_shape"]["time"]
+        for row in range(r["mesh_shape"]["ch"]):
+            out = SimpleNamespace(**{f: torch.from_numpy(full[f][row]).cuda()
+                                     for f in full.files})
+            gates = _sharded_gates(f"multi-process {label} row {row}", out,
+                                   refs[row], shards)
+            station = _station_gates(f"multi-process {label} row {row}",
+                                     out, sharded_res.rds_info_bits,
+                                     need_words)
+        timing[cross] = r["results"]
+        print(f"multi-process {label}: mesh {r['mesh_shape']} over "
+              f"{MP_PROCS} processes on cuda:0 ({r['backend']}), "
+              f"{blocks} blocks a shard; every row vs its contiguous run on "
+              f"the card within the gates (last row: {gates}; {station}); "
+              f"{r['aggregate_samples_per_s'] / 1e6:.2f} IQ Msamples/s "
+              f"summed (host clock, best of 3); launches {launches}, edge "
+              f"messages {[res['edge_messages'] for res in r['results']]}")
+    halo = timing[True][0]["halo_raw"]
+    print(f"multi-process edge exchange per call (gloo, pinned host staging, "
+          f"4 rows x {halo} floats from process 0 to process 1, host clock "
+          f"around a synchronize): "
+          + ", ".join(f"{res['edge_ms']:.4f} ms" for res in timing[True])
+          + "; beside K6 per call in the same processes (CUDA events; "
+          "(c): the zero fill of 4 one-shard rows) "
+          + ", ".join(f"{res['k6_ms']:.4f} ms" for res in timing[True])
+          + ", and in (b)'s (S=4 shards of one row) "
+          + ", ".join(f"{res['k6_ms']:.4f} ms" for res in timing[False]))
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -1143,6 +1274,7 @@ def main() -> int:
     main_path = phase_main_path(rng)
     wideband = phase_cli(main_path["capture"])
     sharded = phase_time_sharded(rng)
+    phase_multi_process(main_path["capture"], sharded["capture"])
     timing = phase_timing(smi, k1, pll, k4, k5, k6)
     errs = {"fir_frontend_u8": k1["max_abs_err"],
             "pll_angles": pll["max_abs_err"],

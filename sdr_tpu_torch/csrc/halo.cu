@@ -51,8 +51,10 @@
 // wrapper sends them to the table entry.
 //
 // Not NCCL: send/recv is a library of finished kernels and needs one
-// process per card; this one process drives S shards on one card or on
-// several, and the copy is the kernel.
+// process per card; K6 serves the shards of one process, on one card or
+// on several, and the copy is the kernel.  Only a halo that crosses the
+// process edge travels as torch.distributed point-to-point
+// (parallel/time_shard.py, exchange_edges).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

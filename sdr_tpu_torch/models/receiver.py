@@ -34,6 +34,7 @@ from sdr_tpu_torch.ops import fir as tfir
 from sdr_tpu_torch.ops import fir_decim, fir_frontend
 from sdr_tpu_torch.ops import pll as tpll
 from sdr_tpu_torch.ops import pll_cuda
+from sdr_tpu_torch.ops.fir import pin_fp32_matmul  # noqa: F401
 
 _F32 = torch.float32
 
@@ -452,14 +453,6 @@ def resolve_device(device: torch.device | str) -> torch.device:
         raise RuntimeError(f"device {dev} requested but no CUDA device is "
                            "available: pass device='cpu' to run on the CPU")
     return dev
-
-
-def pin_fp32_matmul() -> None:
-    """Turn TF32 off for matrix products and convolutions.  The FIRs need
-    full fp32: TF32 keeps ~1e-3 relative precision, where the JAX package's
-    FIRs hold ~1.5e-5."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 class Receiver:

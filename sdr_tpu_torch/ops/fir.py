@@ -119,6 +119,14 @@ def _gather_windows(xc: torch.Tensor, n_win: int, stride: int,
     return xc.unfold(-1, t_win, stride)[..., :n_win, :]
 
 
+def pin_fp32_matmul() -> None:
+    """Turn TF32 off for matrix products and convolutions.  The FIRs need
+    full fp32: TF32 keeps ~1e-3 relative precision, where the JAX package's
+    FIRs hold ~1.5e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def _check_decim(n: int, decim: int) -> None:
     if n % decim:
         raise ValueError(f"block length {n} is not a multiple of the "
@@ -148,6 +156,22 @@ def fir_block_decim_mm(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
     y = y.reshape(y.shape[:-2] + (n_win * u_blk,))[..., :n_out]
     new_state = xc[..., xc.shape[-1] - (k - 1):]
     return y, new_state
+
+
+def fir_block_decim(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor,
+                    decim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streaming decimating FIR with the contract of
+    ``sdr_tpu.ops.fir.fir_block_decim``: y[j] = sum_n h[n] * xc[K-1 + j*D
+    - n], xc = [state, x].  The JAX package computes it as a convolution;
+    the port computes it in the banded form (:func:`fir_block_decim_mm`)."""
+    return fir_block_decim_mm(x, h, state, decim)
+
+
+def fir_block(x: torch.Tensor, h: torch.Tensor, state: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streaming FIR, unit stride (``sdr_tpu.ops.fir.fir_block``), in the
+    banded form."""
+    return fir_block_decim_mm(x, h, state, 1)
 
 
 def fir_block_multi_mm(x: torch.Tensor, hs: torch.Tensor,

@@ -10,10 +10,14 @@ Port of ``sdr_tpu/parallel``.  Two axes:
   from its left neighbour, warms up its filter and PLL states on it, and
   discards the overlap's outputs.
 
-One process drives every shard.  A :class:`~.mesh.Mesh` names the devices
-on named axes, and may name one card several times: the shards that share
-a card run as rows of one batch there.  ``multihost.make_mesh`` lays out
-the local devices as a channel x time grid.
+A :class:`~.mesh.Mesh` names the devices on named axes, and may name one
+card several times: the shards of a process that share a card run as rows
+of one batch there.  A mesh may span processes: ``multihost.setup`` joins
+them in a ``torch.distributed`` group and ``multihost.make_mesh`` lays out
+every process's devices as one channel x time grid.  Each process then
+passes its own part of the input and runs its own cells; halos that cross
+the process edge travel as point-to-point messages
+(``time_shard.exchange_edges``), those inside a process by K6.
 """
 
 from sdr_tpu_torch.parallel.channel import (  # noqa: F401
@@ -25,6 +29,7 @@ from sdr_tpu_torch.parallel.mesh import Mesh, local_devices  # noqa: F401
 from sdr_tpu_torch.parallel.time_shard import (  # noqa: F401
     assemble_time_chunks,
     default_block_if,
+    halo_raw,
     time_sharded_receive,
     time_sharded_receive_chunked,
 )

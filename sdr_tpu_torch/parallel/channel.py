@@ -5,7 +5,9 @@ leading batch dims, so C channels over D devices is a split of the batch
 with nothing exchanged on the hot path.  Each device streams its share of
 the channels through ``run_blocks``; the outputs stay on their devices, as
 the JAX package's stay sharded, until :func:`gather_channels` collects
-them.  Mesh shards that share a device run as one batch there.
+them.  Mesh shards that share a device run as one batch there.  On a mesh
+that spans processes each process passes its own channels and runs its own
+shards, as the JAX worker's ``make_array_from_process_local_data`` does.
 """
 
 from __future__ import annotations
@@ -21,10 +23,11 @@ from sdr_tpu_torch.parallel.mesh import Mesh
 
 
 class ChannelShards(NamedTuple):
-    """Outputs of :func:`channel_sharded_run`, one entry per shard along
-    the mesh axis: ``outputs[d]`` stacked (n_blocks, C/D, out_len) and
-    ``states[d]`` with batch (C/D,), on that shard's device; shard d holds
-    channels d*C/D to (d+1)*C/D."""
+    """Outputs of :func:`channel_sharded_run`, one entry per shard of this
+    process along the mesh axis (every shard, on a mesh of one process):
+    ``outputs[i]`` stacked (n_blocks, C/D, out_len) and ``states[i]``
+    with batch (C/D,), on that shard's device; the process's shard i holds
+    its channel rows i*C/D to (i+1)*C/D."""
 
     outputs: list
     states: list
@@ -37,17 +40,22 @@ def channel_sharded_run(iq_channels: np.ndarray, mesh: Mesh,
                         axis: str = "ch") -> ChannelShards:
     """Run C independent channels sharded over ``mesh`` axis ``axis``.
 
-    ``iq_channels``: (C, n_samples) interleaved IQ, normalized float or raw
-    uint8 (u8 stays u8 up to the device, where K1 normalizes it: a quarter
-    of the float bytes).  C must be a multiple of the axis size.  The PLL
-    kernel is chosen from the global (C, arms) shape, as the JAX package's
-    one program over the whole batch chooses it."""
+    ``iq_channels``: this process's (C_p, n_samples) interleaved IQ, the
+    channels of its shards in axis order (all C on a mesh of one process),
+    normalized float or raw uint8 (u8 stays u8 up to the device, where K1
+    normalizes it: a quarter of the float bytes).  C_p must be a multiple
+    of the process's shard count.  Nothing is exchanged between shards or
+    processes.  The PLL kernel is chosen from the global (C, arms) shape,
+    C = C_p / (the process's shards) x (the axis size), as the JAX
+    package's one program over the whole batch chooses it."""
     mc = (mode if isinstance(mode, cfg.ModeConfig)
           else cfg.get_mode_config(mode))
     with_rds = with_rds and mc.rds is not None
     if block_size is None:
         block_size = mc.default_block_size(with_rds)
-    devices = list(mesh.grid(axis)[0])
+    grid = mesh.grid(axis)
+    shards = mesh.local_cells(axis)[1]
+    devices = [grid[0, d] for d in shards]
     c, n = iq_channels.shape
     if c % len(devices):
         raise ValueError(f"{c} channels do not split over {len(devices)} "
@@ -59,22 +67,23 @@ def channel_sharded_run(iq_channels: np.ndarray, mesh: Mesh,
         blocks = blocks.astype(np.float32)
     # (n_blocks, C, block): the block axis first, as run_blocks takes it
     blocks = np.moveaxis(blocks.reshape(c, n_blocks, block_size), 1, 0)
-    fused = rx.fused_mixer_policy(c, int(stereo) + int(with_rds))
+    fused = rx.fused_mixer_policy(per * grid.shape[1],
+                                  int(stereo) + int(with_rds))
     rx.pin_fp32_matmul()
 
     by_dev: dict[torch.device, list[int]] = {}
     for d, dev in enumerate(devices):
         by_dev.setdefault(dev, []).append(d)
     outputs, states = [None] * len(devices), [None] * len(devices)
-    for dev, shards in by_dev.items():
+    for dev, local in by_dev.items():
         rows = np.concatenate([np.arange(d * per, (d + 1) * per)
-                               for d in shards])
+                               for d in local])
         x = torch.from_numpy(np.ascontiguousarray(blocks[:, rows])).to(dev)
         outs, st = rx.run_blocks(
             x, rx.design_coeffs(mc, device=dev),
             rx.init_state(mc, (len(rows),), device=dev), mc, stereo,
             with_rds, fused_mixer=fused)
-        for i, d in enumerate(shards):
+        for i, d in enumerate(local):
             take = slice(i * per, (i + 1) * per)
             outputs[d] = rx.map_state(lambda a: a[:, take], outs)
             states[d] = rx.map_state(lambda a: a[take], st)
@@ -84,8 +93,9 @@ def channel_sharded_run(iq_channels: np.ndarray, mesh: Mesh,
 def gather_channels(shards: ChannelShards,
                     device: torch.device | str | None = None
                     ) -> tuple[rx.BlockOutputs, rx.ReceiverState]:
-    """All channels in order on one ``device`` (default: shard 0's):
-    outputs (n_blocks, C, out_len) and the (C,)-batch final state."""
+    """This process's channels in order on one ``device`` (default: its
+    first shard's): outputs (n_blocks, C_p, out_len) and the (C_p,)-batch
+    final state.  Nothing crosses processes."""
     device = torch.device(device) if device is not None else \
         shards.outputs[0].fm_demod.device
     cat = lambda dim: lambda *xs: torch.cat([x.to(device) for x in xs],

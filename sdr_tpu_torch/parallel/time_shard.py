@@ -16,14 +16,18 @@ shard 0 (whose halo is zeros) is reset to the exact fresh state after its
 warm-up, so it matches a contiguous run from sample 0.
 
 Where the JAX package runs one ``shard_map`` program over a device mesh,
-one process here holds the S shards on the devices of a
-:class:`~sdr_tpu_torch.parallel.mesh.Mesh`.  The shards that share a
-device run as rows of one batch through the same ``process_block`` as a
-contiguous run: on one card, time sharding turns the serial PLL of one
-station into S (or C x S) lanes.  The halo exchange is kernel K6
-(``parallel.halo``; one launch per card, the shards of one card handed
-over as row blocks of one buffer): on CUDA tensors it runs on the card,
-on CPU tensors its plain version runs.  The input is normalized float32, so the RF
+each process here runs its own cells of a
+:class:`~sdr_tpu_torch.parallel.mesh.Mesh` (all of them on a mesh of one
+process).  The shards that share a device run as rows of one batch through
+the same ``process_block`` as a contiguous run: on one card, time sharding
+turns the serial PLL of one station into S (or C x S) lanes.  The halo
+exchange inside a process is kernel K6 (``parallel.halo``; one launch per
+card, the shards of one card handed over as row blocks of one buffer): on
+CUDA tensors it runs on the card, on CPU tensors its plain version runs.
+Where a time row crosses the process edge, the left process sends its last
+shard's tail to the right one as ``torch.distributed`` point-to-point
+(:func:`exchange_edges`), which overwrites the zeros K6 gave that
+process's first shard.  The input is normalized float32, so the RF
 front-end on this path is K5 (float), as in the JAX package.
 """
 
@@ -33,6 +37,7 @@ from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sdr_tpu_torch import config as cfg
 from sdr_tpu_torch.models import receiver as rx
@@ -48,6 +53,14 @@ def default_block_if(mc: cfg.ModeConfig, with_rds: bool = False) -> int:
     return -(-5000 // mult) * mult
 
 
+def halo_raw(mc: cfg.ModeConfig, block_if: int,
+             overlap_if: Optional[int] = None) -> int:
+    """Raw samples of a shard's halo: the overlap (default 6000 IF
+    samples) rounded up to whole ``block_if``-IF blocks."""
+    overlap_if = 6000 if overlap_if is None else overlap_if
+    return -(-overlap_if // block_if) * block_if * 2 * mc.rf_decim
+
+
 class _Group(NamedTuple):
     """The shards on one device: ``cells`` are (b, k) grid positions, each
     ``c_local`` consecutive rows of the device's batch."""
@@ -57,13 +70,18 @@ class _Group(NamedTuple):
 
 
 class _Shards:
-    """Where every shard of a (C, n) recording lives and how it is cut."""
+    """Where every shard of a (C, n) recording lives and how it is cut.
+
+    ``iq_shape`` is this process's part: its rows of the (B, S) grid
+    (``rows_b``) over its time span (shards ``cols``), from which the
+    global C and n follow."""
 
     def __init__(self, iq_shape: tuple, mesh: Mesh, mc: cfg.ModeConfig,
                  stereo: bool, with_rds: bool, overlap_if: Optional[int],
                  axis: str, batch_axis: Optional[str],
                  block_if: Optional[int]):
         self.grid = mesh.grid(axis, batch_axis)
+        self.rows_b, self.cols = mesh.local_cells(axis, batch_axis)
         n_b, self.s = self.grid.shape
         mult = mc.if_block_multiple(with_rds)
         if block_if is None:
@@ -71,17 +89,15 @@ class _Shards:
         if block_if % mult:
             raise ValueError(f"block_if {block_if} is not a multiple of "
                              f"{mult}")
-        if overlap_if is None:
-            overlap_if = 6000
         # the overlap is whole blocks so that whole steps are discarded
-        self.n_skip = -(-overlap_if // block_if)
         self.block_raw = block_if * 2 * mc.rf_decim
-        self.halo_raw = self.n_skip * self.block_raw
+        self.halo_raw = halo_raw(mc, block_if, overlap_if)
+        self.n_skip = self.halo_raw // self.block_raw
         n = iq_shape[-1]
-        self.seg = n // self.s
-        if self.seg * self.s != n:
+        self.seg = n // len(self.cols)
+        if self.seg * len(self.cols) != n:
             raise ValueError(f"a recording of {n} samples does not split "
-                             f"evenly across {self.s} shards")
+                             f"evenly across {len(self.cols)} shards")
         if self.seg % self.block_raw:
             raise ValueError(f"a segment of {self.seg} raw samples is not a "
                              f"whole number of {self.block_raw}-sample blocks")
@@ -90,47 +106,72 @@ class _Shards:
                              f"longer than a segment of {self.seg}")
         self.blocks_per_seg = self.seg // self.block_raw
         self.batched = batch_axis is not None
-        self.c = int(iq_shape[0]) if self.batched else 1
-        if self.c % n_b:
-            raise ValueError(f"{self.c} channels do not split over "
-                             f"{n_b} devices of {batch_axis!r}")
-        self.c_local = self.c // n_b
+        c_here = int(iq_shape[0]) if self.batched else 1
+        if c_here % len(self.rows_b):
+            raise ValueError(f"{c_here} channels do not split over "
+                             f"{len(self.rows_b)} devices of {batch_axis!r}")
+        self.c_local = c_here // len(self.rows_b)
+        self.c = self.c_local * n_b
         groups: dict[torch.device, list] = {}
-        for b in range(n_b):
-            for k in range(self.s):
+        for b in self.rows_b:
+            for k in self.cols:
                 groups.setdefault(self.grid[b, k], []).append((b, k))
         self.groups = [_Group(d, cells) for d, cells in groups.items()]
         self.where = {cell: (g, j) for g, grp in enumerate(self.groups)
                       for j, cell in enumerate(grp.cells)}
         # the PLL kernel is chosen from the GLOBAL shape: the rows of a
-        # device's batch would count S*C lanes and could flip K2 to K3
+        # device's batch would count S*C lanes and could flip K2 to K3,
+        # and a process's own rows would count fewer
         arms = int(stereo) + int(with_rds)
         self.fused_mixer = rx.fused_mixer_policy(self.c, arms)
         self.arms = ["fm_demod", "mono"] + (["left", "right"] if stereo
                                             else []) \
             + (["rds_symbols"] if with_rds else [])
 
+    def local(self, cell: tuple[int, int]) -> tuple[slice, int]:
+        """Rows and shard of ``cell`` in this process's (C_p, S_p, seg)
+        input."""
+        b, k = cell
+        i = b - self.rows_b.start
+        return slice(i * self.c_local, (i + 1) * self.c_local), \
+            k - self.cols.start
+
     def rows(self, cells: list, segs: np.ndarray, lo: int, hi: int
              ) -> np.ndarray:
         """Samples [lo, hi) of each cell's segment, as (cells*c_local,
-        hi-lo) rows; ``segs`` is (C, S, seg)."""
-        c = self.c_local
-        return np.concatenate([segs[b * c:(b + 1) * c, k, lo:hi]
-                               for b, k in cells])
+        hi-lo) rows; ``segs`` is this process's (C_p, S_p, seg)."""
+        return np.concatenate([segs[r, k, lo:hi]
+                               for r, k in map(self.local, cells)])
 
     def halos(self, cells: list, segs: np.ndarray) -> np.ndarray:
         """Each cell's halo sliced on the host: the left segment's tail,
         zeros for shard 0."""
-        c = self.c_local
         return np.concatenate([
-            segs[b * c:(b + 1) * c, k - 1, -self.halo_raw:] if k else
-            np.zeros((c, self.halo_raw), np.float32) for b, k in cells])
+            segs[r, k - 1, -self.halo_raw:] if k else
+            np.zeros((self.c_local, self.halo_raw), np.float32)
+            for r, k in map(self.local, cells)])
 
     def first_rows(self, group: _Group) -> torch.Tensor:
-        """(rows,) mask of the device's batch rows that belong to shard 0."""
+        """(rows,) mask of the device's batch rows that belong to global
+        shard 0."""
         mask = torch.tensor([k == 0 for _, k in group.cells],
                             device=group.device)
         return mask.repeat_interleave(self.c_local)
+
+
+def edge_peers(mesh: Mesh, axis: str = "time",
+               batch_axis: Optional[str] = None) -> tuple[list, list]:
+    """The halos of this process's cells that cross the process edge, per
+    time row b of :meth:`Mesh.grid`: (b, peer rank) pairs of the tails it
+    sends (its last shard's, to the owner of the next shard) and of the
+    halo slots it receives (its first shard's, from the owner of the
+    previous one)."""
+    ranks = mesh.rank_grid(axis, batch_axis)
+    rows, cols = mesh.local_cells(axis, batch_axis)
+    sends = [(b, int(ranks[b, cols[-1] + 1])) for b in rows
+             if cols[-1] + 1 < ranks.shape[1]]
+    recvs = [(b, int(ranks[b, cols[0] - 1])) for b in rows if cols[0] > 0]
+    return sends, recvs
 
 
 def _reset_first(state: rx.ReceiverState, fresh: rx.ReceiverState,
@@ -202,9 +243,53 @@ def _prepare(iq, mesh: Mesh, mode, stereo: bool, with_rds: bool,
                          "axis, (C, n) with one")
     sh = _Shards(iq.shape, mesh, mc, stereo, with_rds, overlap_if, axis,
                  batch_axis, block_if)
-    segs = iq.reshape(sh.c, sh.s, sh.seg)
+    segs = iq.reshape(len(sh.rows_b) * sh.c_local, len(sh.cols), sh.seg)
     rx.pin_fp32_matmul()
     return mc, with_rds, sh, segs
+
+
+def _staging(like: torch.Tensor, nccl: bool) -> torch.Tensor:
+    """A contiguous buffer for one edge message: for NCCL on the card the
+    group is bound to (the process's current device: one communicator for
+    all of its messages, whichever of its cards a shard is on), for gloo
+    in host memory, pinned when ``like`` is on a card."""
+    if nccl:
+        return torch.empty(like.shape, dtype=like.dtype, device=torch.device(
+            "cuda", torch.cuda.current_device()))
+    return torch.empty(like.shape, dtype=like.dtype,
+                       pin_memory=like.device.type == "cuda")
+
+
+def exchange_edges(sends: list, recvs: list) -> None:
+    """The halos that cross the process edge, as ``torch.distributed``
+    point-to-point: ``sends`` are (tail, peer rank, tag) and ``recvs``
+    (halo slot, peer rank, tag), where a tag names the time row, so that
+    the messages of one pair of processes match row by row.  Tails and
+    slots may be strided views on any of the process's devices: each
+    message goes through a contiguous staging buffer chosen by the group's
+    backend, on the card for NCCL, in host memory for gloo (whose TCP
+    transport cannot read a card's memory).  Every process whose mesh row
+    crosses an edge calls this once per call of
+    :func:`time_sharded_receive`."""
+    nccl = dist.get_backend() == "nccl"
+    ops, landed = [], []
+    for tail, peer, tag in sends:
+        buf = _staging(tail, nccl)
+        buf.copy_(tail)
+        ops.append(dist.P2POp(dist.isend, buf, peer, tag=tag))
+    for slot, peer, tag in recvs:
+        buf = _staging(slot, nccl)
+        ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
+        landed.append((slot, buf))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for slot, buf in landed:
+        slot.copy_(buf)
+    exchange_edges.messages += len(ops)
+
+
+# messages sent or received across the process edge, in this process
+exchange_edges.messages = 0
 
 
 def time_sharded_receive(iq: np.ndarray, mesh: Mesh,
@@ -219,14 +304,18 @@ def time_sharded_receive(iq: np.ndarray, mesh: Mesh,
     ``iq``: (n,) normalized interleaved IQ; n must split into S =
     ``mesh.shape[axis]`` segments of whole ``block_if``-IF blocks.  With
     ``batch_axis`` set, ``iq`` is (C, n): a channel batch split over that
-    axis, and time over ``axis`` (a channel x time grid).  ``overlap_if``
-    (default 6000 IF samples: beyond FIR depth, with re-lock runway for
-    the pilot PLL) is rounded up to whole blocks.  Each device holds one
-    extended buffer [halo | segment] per shard; K6 fills the halos, the
-    warm-up runs over them and is discarded, and every block streams
-    through ``process_block`` over the device's rows.  Returns the outputs
-    laid out exactly like a contiguous run ((n_out,), or (C, n_out)) on
-    the mesh's first device; disabled arms are empty."""
+    axis, and time over ``axis`` (a channel x time grid).  On a mesh that
+    spans processes each process passes only its part, its rows over its
+    time span (:meth:`~sdr_tpu_torch.parallel.mesh.Mesh.local_cells`),
+    and the global C and n follow from the mesh.  ``overlap_if`` (default
+    6000 IF samples: beyond FIR depth, with re-lock runway for the pilot
+    PLL) is rounded up to whole blocks.  Each device holds one extended
+    buffer [halo | segment] per shard; K6 fills the halos inside the
+    process, :func:`exchange_edges` those across its edge, the warm-up
+    runs over them and is discarded, and every block streams through
+    ``process_block`` over the device's rows.  Returns this process's
+    outputs laid out exactly like a contiguous run of its part ((n_out,),
+    or (C_p, n_out)) on its first device; disabled arms are empty."""
     mc, with_rds, sh, segs = _prepare(iq, mesh, mode, stereo, with_rds,
                                       overlap_if, axis, batch_axis, block_if)
     length = sh.halo_raw + sh.seg
@@ -238,35 +327,53 @@ def time_sharded_receive(iq: np.ndarray, mesh: Mesh,
             sh.rows(grp.cells, segs, 0, sh.seg)))
         ext.append(buf)
     c = sh.c_local
+
+    def cell(bk: tuple[int, int]) -> torch.Tensor:
+        g, j = sh.where[bk]
+        return ext[g][j * c:(j + 1) * c]
+
     if len(ext) == 1:
         # one device: its cells (b, k), in order, are row blocks of ext[0]
-        khalo.halo_shift_right(ext[0].view(sh.grid.shape[0], sh.s, c, length),
-                               sh.halo_raw)
-    else:
         khalo.halo_shift_right(
-            [[ext[g][j * c:(j + 1) * c] for g, j in
-              (sh.where[(b, k)] for k in range(sh.s))]
-             for b in range(sh.grid.shape[0])], sh.halo_raw)
+            ext[0].view(len(sh.rows_b), len(sh.cols), c, length),
+            sh.halo_raw)
+    else:
+        khalo.halo_shift_right([[cell((b, k)) for k in sh.cols]
+                                for b in sh.rows_b], sh.halo_raw)
+    sends, recvs = edge_peers(mesh, axis, batch_axis)
+    if sends or recvs:
+        if not dist.is_initialized():
+            raise RuntimeError(f"{mesh!r} spans processes: its halos cross "
+                               "the process edge, which needs the "
+                               "torch.distributed group (multihost.setup)")
+        # K6 gave this process's first shards zeros, as to global shard 0;
+        # the left process's tails overwrite them
+        k0, k1 = sh.cols[0], sh.cols[-1]
+        exchange_edges(
+            [(cell((b, k1))[:, -sh.halo_raw:], peer, b) for b, peer in sends],
+            [(cell((b, k0))[:, :sh.halo_raw], peer, b) for b, peer in recvs])
 
     runner = _Runner(sh, mc, stereo, with_rds)
     runner.warm_up([buf[:, :sh.halo_raw] for buf in ext])
     outs = runner.run([buf[:, sh.halo_raw:] for buf in ext],
                       sh.blocks_per_seg)
-    return _assemble(sh, outs, mesh.devices.flat[0])
+    return _assemble(sh, outs, sh.groups[0].device)
 
 
 def _assemble(sh: _Shards, outs: list[dict], device: torch.device
               ) -> rx.BlockOutputs:
-    """Per-device (rows, T) outputs -> the contiguous layout: channel
-    b*c_local + i, time k*T + t for row i of cell (b, k)."""
-    c = sh.c_local
+    """Per-device (rows, T) outputs -> the contiguous layout of this
+    process's part: row i of cell (b, k) at local channel r*c_local + i and
+    time k'*T + t, with (r, k') the cell's place in the part."""
     res = {}
     for a in sh.arms:
         t = outs[0][a].shape[-1]
-        full = torch.empty((sh.c, sh.s * t), dtype=_F32, device=device)
-        for (b, k), (g, j) in sh.where.items():
-            full[b * c:(b + 1) * c, k * t:(k + 1) * t] = \
-                outs[g][a][j * c:(j + 1) * c].to(device)
+        full = torch.empty((len(sh.rows_b) * sh.c_local, len(sh.cols) * t),
+                           dtype=_F32, device=device)
+        for cell, (g, j) in sh.where.items():
+            rows, k = sh.local(cell)
+            full[rows, k * t:(k + 1) * t] = \
+                outs[g][a][j * sh.c_local:(j + 1) * sh.c_local].to(device)
         res[a] = full if sh.batched else full[0]
     empty = torch.zeros((0,), dtype=_F32, device=device)
     return rx.BlockOutputs(**{f: res.get(f, empty)
@@ -291,9 +398,21 @@ def time_sharded_receive_chunked(iq: np.ndarray, mesh: Mesh,
     host (the same values K6 delivers, so this path needs no K6), and the
     same rows, blocks, shard-0 reset and pinned PLL kernel as the
     single-shot path run, so :func:`assemble_time_chunks` of the chunks is
-    bit-identical to it."""
+    bit-identical to it.  The host array holds the whole recording, so the
+    mesh must be one process's, as in the JAX package: a mesh that spans
+    processes raises ValueError."""
+    if mesh.spans_processes:
+        raise ValueError(f"{mesh!r} spans processes: the chunked path slices "
+                         "its halos from one host array; use "
+                         "time_sharded_receive")
     mc, with_rds, sh, segs = _prepare(iq, mesh, mode, stereo, with_rds,
                                       overlap_if, axis, batch_axis, block_if)
+    return _chunks(mc, stereo, with_rds, sh, segs, chunk_blocks)
+
+
+def _chunks(mc: cfg.ModeConfig, stereo: bool, with_rds: bool, sh: _Shards,
+            segs: np.ndarray, chunk_blocks: int
+            ) -> Iterator[dict[str, np.ndarray]]:
     put = lambda a, grp: torch.from_numpy(a).to(grp.device)
     runner = _Runner(sh, mc, stereo, with_rds)
     runner.warm_up([put(sh.halos(g.cells, segs), g) for g in sh.groups])

@@ -1,2 +1,3 @@
 """Utilities of the port: synthesized FM captures with known ground truth
-(``synth``)."""
+(``synth``) and the signal-quality metrics they are held to
+(``metrics``)."""

@@ -26,13 +26,25 @@ fill), and through its table entry on one card (the same tensor at an odd
 halo, views of one buffer, a 1-D row of shards and a channel x time grid,
 float4 and odd lengths, a misaligned view) and across two cards (skipped,
 with the reason, on one).  K5 is also held at tap counts whose phase
-windows end in half a swizzle group.
+windows end in half a swizzle group.  The mesh across processes runs
+through scripts/torch_multihost_scaling.py with NCCL, two processes on
+cards of their own (skipped below 2 or 4 cards): the channel mesh, each
+process's rows against a one-process run of the same rows, and the time
+axis with the halo inside each process or across the process edge,
+against one process running the same mesh on one card (1e-5 on
+fm_demod and mono, 5e-3 on the PLL arms) and a contiguous run.  The edge
+exchange of halos on the card stages its messages by the group's backend:
+pinned host memory for gloo, the card for NCCL.
 """
+
+import json
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
+import torch_multiprocess
 from sdr_tpu_torch import config as cfg
 from sdr_tpu_torch import stimulus
 from sdr_tpu_torch.golden import filters as gfilt
@@ -520,3 +532,95 @@ def test_time_sharded_on_card_matches_cpu_and_chunked(dev):
     got = pts.assemble_time_chunks(chunks)
     for f in ("fm_demod", "mono", "left", "right", "rds_symbols"):
         np.testing.assert_array_equal(got[f], getattr(og, f).cpu().numpy())
+
+
+# --- the mesh across processes: NCCL, each process on its own cards ---------
+
+@pytest.fixture(scope="module")
+def scaling():
+    return torch_multiprocess.load_scaling()
+
+
+def _need_cards(n: int) -> None:
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices (2 processes on cards of their "
+                    f"own), found {torch.cuda.device_count()}")
+
+
+def test_nccl_channel_mesh_across_processes(dev, scaling, tmp_path):
+    """Two processes, one card each, NCCL picked from their devices: each
+    process's rows against a one-process run of the same rows."""
+    _need_cards(2)
+    r = scaling.run_config(tmp_path, 2, 1, device="cuda", cards=1,
+                           ch_per_proc=8, rds=True, blocks=3, rounds=2,
+                           timeout_s=300.0)
+    assert r["backend"] == "nccl"
+    for res in r["results"]:
+        assert res["launches"]["fir_frontend_u8"] > 0
+        for arm, err in res["max_abs_err_vs_one_process"].items():
+            assert err <= (1e-5 if arm in ("fm_demod", "mono") else 5e-3), \
+                (arm, err)
+    print(json.dumps({k: v for k, v in r.items() if k != "results"}))
+
+
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("cards", [1, 2])
+def test_nccl_time_axis_across_processes(dev, scaling, tmp_path, cards,
+                                         cross):
+    """Two processes of two mesh entries each, on one card or on two cards
+    of their own: the halo inside each process (K6), or every time row
+    across the process edge (NCCL point-to-point, staged on the card).
+    The gathered outputs against the same mesh shape run by one process
+    on one card (1e-5 on fm_demod and mono, 5e-3 on the PLL arms), and
+    against a contiguous run (fm_demod 1e-5, mono relative RMS 1e-4)."""
+    _need_cards(2 * cards)
+    r = scaling.run_time_axis(tmp_path, 2, 2, device="cuda", cards=cards,
+                              cross=cross, rds=True, block_if=960, blocks=6,
+                              overlap_if=1920, rounds=3, reps=20,
+                              save_outputs=True, timeout_s=300.0)
+    assert r["backend"] == "nccl" and r["mesh_shape"] == {"ch": 2, "time": 2}
+    assert r["halo_intra_process"] == (not cross)
+    for res in r["results"]:
+        assert res["edge_messages"] == (2 if cross else 0)
+        for k in ("fir_decim_f32", "pll_angles", "halo_shift_right"):
+            assert res["launches"][k] > 0, (k, res["launches"])
+    assert r["fm_max_abs_err_vs_contiguous"] <= 1e-5
+    assert r["mono_rel_rms_vs_contiguous"] < 1e-4
+    full = np.load(tmp_path / "outputs.npz")
+    iq = synth.u8_to_float(scaling.capture_rows(tmp_path / "capture.npz",
+                                                range(2)))
+    one = pts.time_sharded_receive(
+        iq, Mesh(np.full((2, 2), dev, dtype=object), ("ch", "time")), 0,
+        stereo=True, with_rds=True, batch_axis="ch", block_if=960,
+        overlap_if=1920)
+    for f in ("fm_demod", "mono", "left", "right", "rds_symbols"):
+        np.testing.assert_allclose(
+            full[f], getattr(one, f).cpu().numpy(), rtol=0,
+            atol=1e-5 if f in ("fm_demod", "mono") else 5e-3, err_msg=f)
+    print(json.dumps({"cards": cards, "cross": cross,
+                      **{k: v for k, v in r.items() if k != "results"},
+                      "edge_ms": [res["edge_ms"] for res in r["results"]],
+                      "k6_ms": [res["k6_ms"] for res in r["results"]]}))
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_exchange_edges_stages_by_backend(dev, monkeypatch, backend):
+    """The edge exchange of halos on the card hands gloo only pinned host
+    tensors (its TCP transport cannot read a card's memory) and NCCL only
+    tensors on the process's card, whatever the layout of the tails and
+    slots (a loopback in place of the group)."""
+    seen = torch_multiprocess.loopback_group(monkeypatch, backend)
+    halo = 1000
+    ext = torch.randn(4, 3 * halo, device=dev)
+    tails = [(ext[r:r + 2, -halo:], 1, r) for r in (0, 2)]
+    slots = [(ext[r:r + 2, :halo], 1, r) for r in (0, 2)]
+    pts.exchange_edges(tails, slots)
+    for _, t, _, _ in seen:
+        assert t.is_contiguous()
+        if backend == "gloo":
+            assert t.device.type == "cpu" and t.is_pinned()
+        else:
+            assert t.device == torch.device("cuda",
+                                            torch.cuda.current_device())
+    assert len(seen) == 4
+    assert torch.equal(ext[:, :halo], ext[:, -halo:])

@@ -4,8 +4,8 @@
   nothing of the JAX package ``sdr_tpu``, not even its numpy modules: the
   machine with the GPU has no JAX, and the port keeps its own copies.
   Checked in a fresh interpreter whose import system refuses both, and by
-  scanning the imports of the port, ``chip_smoke.py`` and the card-only
-  tests.
+  scanning the imports of the port, ``chip_smoke.py``, the card-only
+  tests and the multi-process script they drive.
 * A kernel wrapper handed a CUDA tensor launches its kernel or raises: no
   kernel module catches an exception and falls back to the plain version.
 """
@@ -65,7 +65,8 @@ print("ok")
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py", "tests/test_torch_cuda.py"])
+    + ["chip_smoke.py", "tests/test_torch_cuda.py",
+       "tests/torch_multiprocess.py", "scripts/torch_multihost_scaling.py"])
 def test_no_forbidden_import(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):

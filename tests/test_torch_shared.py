@@ -2,11 +2,12 @@
 originals, and the port's entry points defaulting to the card.
 
 ``sdr_tpu_torch`` imports nothing of ``sdr_tpu``: it keeps copies of
-``config``, ``golden.filters``, ``golden.rds``, ``io`` and ``utils.synth``
-and its own binding of the shared C++ runtime.  Each copy must behave as
-its original, so every comparison here is exact: configs field by field,
-filter taps, the RDS decode of one synthesized station, synthesized I/Q
-from one seed, and ``io``'s conversions.
+``config``, ``golden.filters``, ``golden.rds``, ``io``, ``utils.synth``
+and ``utils.metrics`` and its own binding of the shared C++ runtime.  Each
+copy must behave as its original, so every comparison here is exact:
+configs field by field, filter taps, the RDS decode of one synthesized
+station, synthesized I/Q from one seed, ``io``'s conversions and the
+metrics of one stereo capture.
 """
 
 import dataclasses
@@ -15,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+import torch_multiprocess
 from sdr_tpu import config as jcfg
 from sdr_tpu import io as jio
 from sdr_tpu.golden import filters as jfilt
 from sdr_tpu.golden import rds as jgrds
 from sdr_tpu.models import rds_decode as jrds
+from sdr_tpu.utils import metrics as jmetrics
 from sdr_tpu.utils import synth as jsynth
 
 import sdr_tpu_torch
@@ -32,6 +35,7 @@ from sdr_tpu_torch.models import receiver as prx
 from sdr_tpu_torch.models.channelizer import Channelizer
 from sdr_tpu_torch.parallel import mesh as pmesh
 from sdr_tpu_torch.parallel import multihost as pmh
+from sdr_tpu_torch.utils import metrics as pmetrics
 from sdr_tpu_torch.utils import synth as psynth
 
 CUSTOM = dict(rf_fs=1.44e6, if_fs=240e3, audio_fs=32e3,
@@ -176,6 +180,33 @@ def test_io_conversions_equal():
                                   jio.u8_normalize(raw))
 
 
+# --- metrics ----------------------------------------------------------------
+
+
+def test_metrics_equal():
+    """Stereo separation, tone SNR (with and without an excluded tone),
+    tone power and RDS accuracy of one seeded two-tone capture."""
+    fs = 48e3
+    rng = np.random.default_rng(8)
+    t = np.arange(24_000) / fs
+    left = (np.sin(2 * np.pi * 800 * t) + 0.01 * np.sin(2 * np.pi * 1500 * t)
+            + 0.02 * rng.standard_normal(t.size))
+    right = (np.sin(2 * np.pi * 1500 * t) + 0.02 * np.sin(2 * np.pi * 800 * t)
+             + 0.02 * rng.standard_normal(t.size))
+    assert pmetrics.stereo_separation_db(left, right, fs, 800, 1500) == \
+        jmetrics.stereo_separation_db(left, right, fs, 800, 1500)
+    for kw in ({}, {"exclude": (1500.0,)}, {"bw": 20.0}):
+        assert pmetrics.tone_snr_db(left, fs, 800, **kw) == \
+            jmetrics.tone_snr_db(left, fs, 800, **kw)
+    assert pmetrics.tone_power(right, fs, 1500) == \
+        jmetrics.tone_power(right, fs, 1500)
+    sent = rng.integers(0, 2, size=(6, 4, 16))
+    words = np.concatenate([sent[:3].reshape(-1, 16),
+                            rng.integers(0, 2, size=(5, 16))])
+    assert pmetrics.rds_accuracy(words, sent) == \
+        jmetrics.rds_accuracy(words, sent)
+
+
 # --- entry points default to the card ---------------------------------------
 
 
@@ -185,7 +216,7 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_refuse_to_run_on_cpu_by_default(no_cuda):
+def test_entry_points_refuse_to_run_on_cpu_by_default(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         prx.Receiver(0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -196,6 +227,12 @@ def test_entry_points_refuse_to_run_on_cpu_by_default(no_cuda):
         pmesh.local_devices()
     with pytest.raises(RuntimeError):
         pmh.make_mesh()
+    scaling = torch_multiprocess.load_scaling()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scaling.run_config(tmp_path / "ch")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scaling.run_time_axis(tmp_path / "time")
+    assert not (tmp_path / "ch").exists() and not (tmp_path / "time").exists()
 
 
 def test_entry_points_run_on_cpu_when_asked(no_cuda):
