@@ -49,8 +49,22 @@ Phases, one line of output each (any failure raises and exits non-zero):
    JAX package's gates against a contiguous run, and the edge exchange's
    time per call printed beside K6's; every process must exit 0 within
    its timeout.  Stereo separation and RDS info words are
-   checked against what each station transmitted;
-4. timing with CUDA events: block time and IQ rate at C=1 and C=512, the
+   checked against what each station transmitted.  Every entry point
+   runs block programs (CUDA graphs of the block, ``models.program``), so
+   these gates hold the programs too; the launch counts include each
+   program's eager warm-up, and per block they are read over the block
+   runs (replays and warm-ups);
+4. block programs: each against the eager block, torch.equal on every
+   output and state leaf over 8 chained blocks (u8 at C=1 and C=512,
+   float at C=1 and 8 rows, mode 2, stereo without RDS, ``rds_debug_q``;
+   the channelizer's program at C=64 over 3 blocks); then four cells
+   timed in turns, eager, program, program, eager (mode-0 stereo+RDS u8
+   at C=1 and C=512, the wideband block of C=64 stations at 19.2 MS/s,
+   the time-sharded step at S=8): wall per block by CUDA events, device
+   busy, idle share, device events and host launches per block under
+   ``torch.profiler``, and each program's capture time and pool bytes,
+   after the card's name and power limit;
+5. timing with CUDA events: block time and IQ rate at C=1 and C=512, the
    wideband block (channelizer + receiver) at C=2 and C=64, each kernel
    against its plain version, its bound and, where one PyTorch call
    computes the same function, that call (K1, K4, K5: ``conv1d`` at stride
@@ -88,7 +102,8 @@ import sdr_tpu_torch
 from sdr_tpu_torch import cli, stimulus
 from sdr_tpu_torch import config as cfg
 from sdr_tpu_torch.kernels import build
-from sdr_tpu_torch.models import rds_decode
+from sdr_tpu_torch.models import channelizer as chan
+from sdr_tpu_torch.models import program, rds_decode
 from sdr_tpu_torch.models import receiver as rx
 from sdr_tpu_torch.models.channelizer import Channelizer
 from sdr_tpu_torch.models.rds_groups import bits_to_int
@@ -564,6 +579,7 @@ def check_k6(rng) -> dict:
 def _reset_counts() -> None:
     for spec in KERNELS.values():
         spec["counter"].launches = 0
+    program.reset_counts()
 
 
 def _read_counts(path: str, need: tuple[str, ...]) -> dict:
@@ -596,11 +612,14 @@ def phase_main_path(rng) -> dict:
     _reset_counts()
     out = sdr_tpu_torch.receive(res.iq_u8, mode=MODE, stereo=True, rds=True,
                                 device="cuda")
+    c1_runs = program.counts["replays"] + program.counts["warm_ups"]
     r512 = rx.Receiver(MODE, stereo=True, with_rds=True, batch_shape=(512,),
                        device="cuda")
     outs512 = r512.run(batch)
     launches = _read_counts("main path", ("fir_frontend_u8", "pll_angles",
                                           "pll_mixer"))
+    runs = program.counts["replays"] + program.counts["warm_ups"]
+    graphs = program.counts["captures"]
 
     sep_l, sep_r = stereo_separation_db(out.left, out.right, mc.audio_fs,
                                         800.0, 1500.0)
@@ -618,17 +637,14 @@ def phase_main_path(rng) -> dict:
     print(f"main path: receive() 1 s capture: separation L {sep_l:.1f} dB, "
           f"R {sep_r:.1f} dB; RDS {len(words)} frames, all info words "
           f"transmitted ({n_groups} groups sent); C=512 x 4 blocks; "
-          f"launches {launches}")
+          f"{graphs} block programs captured, {runs} block runs (replays "
+          f"and each capture's eager warm-up); launches {launches}")
 
-    # blocks of the path: receive() runs the capture's whole blocks and its
-    # tail as one more (K1 and K2 at C=1), the batch 4 blocks (K1 and K3)
-    gran = mc.if_block_multiple(True) * 2 * mc.rf_decim
-    usable = len(res.iq_u8) // gran * gran
-    c1_blocks = -(-usable // bs)
-    per_block = {"fir_frontend_u8": launches["fir_frontend_u8"]
-                 / (c1_blocks + 4),
-                 "pll_angles": launches["pll_angles"] / c1_blocks,
-                 "pll_mixer": launches["pll_mixer"] / 4}
+    # block runs of the path: receive()'s blocks (K1 and K2 at C=1), the
+    # batch's (K1 and K3), each counting its program's warm-up
+    per_block = {"fir_frontend_u8": launches["fir_frontend_u8"] / runs,
+                 "pll_angles": launches["pll_angles"] / c1_runs,
+                 "pll_mixer": launches["pll_mixer"] / (runs - c1_runs)}
 
     # channel 0 of the batch against a single-channel run of the same bytes
     r1 = rx.Receiver(MODE, stereo=True, with_rds=True, device="cuda")
@@ -698,6 +714,9 @@ def phase_cli(res) -> dict:
                    str(raw), "--wav", "-o", str(WORK / "station")],
                   rds_decoders=decs)
     wide = _read_counts("wideband CLI", ("fir_decim_f32", "pll_angles"))
+    # each wideband block runs the channelizer's program and the
+    # receiver's; each program also ran its capture's eager warm-up
+    wide_runs = (program.counts["replays"] + program.counts["warm_ups"]) / 2
     if rc != 0 or len(decs) != len(WIDE_OFFSETS):
         raise AssertionError(f"wideband CLI exited {rc} with {len(decs)} "
                              "RDS decoders")
@@ -711,7 +730,9 @@ def phase_cli(res) -> dict:
             2300.0 - 400.0 * k))
     blocks = len(wb.iq_u8) // (mc.default_block_size(True)
                                * int(round(WIDE_FS / mc.rf_fs)))
-    print(f"wideband CLI: launches {wide} over {blocks} wideband blocks")
+    print(f"wideband CLI: launches {wide} over {blocks} wideband blocks "
+          f"({wide_runs:.0f} runs of each block program, its warm-up "
+          "included)")
 
     raw = WORK / "single.raw"
     res.iq_u8.tofile(raw)
@@ -728,7 +749,7 @@ def phase_cli(res) -> dict:
         "1 s capture", WORK / "single.wav", decs[0], res.rds_info_bits,
         800.0, 1500.0) + f"; launches {single}")
     return {"launches": wide,
-            "per_block": wide["fir_decim_f32"] / blocks}
+            "per_block": wide["fir_decim_f32"] / wide_runs}
 
 
 def _sharded_gates(label: str, out, ref, shards: int = SHARDS) -> str:
@@ -981,7 +1002,207 @@ def phase_multi_process(main_res, sharded_res) -> None:
           + ", ".join(f"{res['k6_ms']:.4f} ms" for res in timing[False]))
 
 
-# --- phase 4 ----------------------------------------------------------------
+# --- phase 4: block programs --------------------------------------------------
+
+# (mode, channels, stereo, with_rds, rds_debug_q, float input), as the card
+# tests' cases
+PROGRAM_CASES = {
+    "u8 C=1 (K1, K2)": (0, 1, True, True, False, False),
+    "u8 C=512 (K1, K3)": (0, 512, True, True, False, False),
+    "float C=1 (K5, K2)": (0, 1, True, True, False, True),
+    "float 8 rows, the time-sharded step (K5, K2)": (0, 8, True, True, False,
+                                                    True),
+    "mode 2 (44.1 kHz resampler)": (2, 1, True, True, False, False),
+    "stereo without RDS (K3, one arm)": (0, 1, True, False, False, False),
+    "rds_debug_q (K2 unfused)": (0, 1, True, True, True, False),
+}
+# the runtime calls that launch work on the card, as the profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def _departs(got, want) -> str | None:
+    """None when every leaf is torch.equal, else where the first differs."""
+    for i, (a, b) in enumerate(zip(program.tree_leaves(got),
+                                   program.tree_leaves(want))):
+        if a.shape != b.shape or not torch.equal(a, b):
+            return (f"leaf {i} {tuple(a.shape)}: max abs diff "
+                    f"{max_err(a.float(), b.float()) if a.numel() else 0:.3g}")
+    return None
+
+
+def check_programs(rng) -> None:
+    """Every block program against the eager block, bit for bit
+    (torch.equal on every output arm and state leaf): the receiver's at the
+    paths' kernel and arm combinations over 8 chained blocks, each side
+    carrying its own state, and the channelizer's (C=64 at 19.2 MS/s) over
+    3 blocks."""
+    for case, (mode, c, stereo, rds, debug_q, as_float) in \
+            PROGRAM_CASES.items():
+        mc = cfg.get_mode_config(mode)
+        bs = mc.default_block_size(rds and mc.rds is not None)
+        lead = (c,) if c > 1 else ()
+        iq = torch.from_numpy(rng.integers(0, 256, lead + (8 * bs,),
+                                           dtype=np.uint8)).cuda()
+        if as_float:
+            iq = fir_frontend.normalize_u8(iq)
+        coeffs = rx.design_coeffs(mc, device="cuda")
+        fn = rx.make_block_fn(mc, stereo, rds, rds_debug_q=debug_q)
+        s_eager = s_prog = rx.init_state(mc, lead, device="cuda")
+        for b in range(8):
+            blk = iq[..., b * bs:(b + 1) * bs].contiguous()
+            o_eager, s_eager = rx.process_block(blk, coeffs, s_eager, mc,
+                                                stereo, rds,
+                                                rds_debug_q=debug_q)
+            o_prog, s_prog = fn(blk, coeffs, s_prog)
+            bad = _departs(o_prog, o_eager) or _departs(s_prog, s_eager)
+            if bad:
+                raise AssertionError(f"block program {case}, block {b}: "
+                                     f"departs from the eager block ({bad})")
+    ch = Channelizer([(k - 32) * 200e3 for k in range(64)], 2 * WIDE_FS,
+                     MODE, device="cuda")
+    n_bytes = cfg.get_mode_config(MODE).default_block_size(True) * ch.decim
+    st = ch.state
+    for b in range(3):
+        blk = torch.from_numpy(rng.integers(0, 256, n_bytes,
+                                            dtype=np.uint8)).cuda()
+        out = ch.process(blk)
+        want, st = chan._channelize_block(blk, ch.coeffs, st, *ch.mixer,
+                                          ch.phase_step(n_bytes // 2),
+                                          ch.decim)
+        bad = _departs(out, want) or _departs(ch.state, st)
+        if bad:
+            raise AssertionError(f"channelizer program block {b}: departs "
+                                 f"from the eager block ({bad})")
+    print("block programs vs the eager block, torch.equal on every output "
+          "and state leaf over 8 chained blocks: " + "; ".join(PROGRAM_CASES)
+          + "; the channelizer's program, C=64 at 19.2 MS/s, 3 blocks")
+
+
+def _busy_ms(intervals: list[tuple[float, float]]) -> float:
+    """Union length of (start, end) microsecond intervals, in ms."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def _profiled_block(fn, reps: int) -> dict:
+    """Under ``torch.profiler`` over ``reps`` blocks: device busy per block
+    (the union of the device events' intervals), device events per block,
+    and host launches per block (the runtime calls of LAUNCH_CALLS)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and e.name in LAUNCH_CALLS]
+    return {"busy_ms": _busy_ms([(e.time_range.start, e.time_range.end)
+                                 for e in dev]) / reps,
+            "events": len(dev) / reps, "host_launches": len(host) / reps}
+
+
+def _cells(rng) -> dict:
+    """The four cells, each as (eager block, program block, reps, the
+    programs whose captures it reports): mode-0 stereo+RDS u8 at C=1 and
+    C=512, the wideband block (channelizer and receiver) of C=64 stations
+    at 19.2 MS/s, and the time-sharded step at S=8 (8 rows of one
+    115,200-sample float block, K2 pinned as the time-sharded path pins
+    it)."""
+    mc = cfg.get_mode_config(MODE)
+    bs = mc.default_block_size(True)
+    cells = {}
+
+    def receiver_cell(name, blk, reps, fused=None):
+        coeffs = rx.design_coeffs(mc, device="cuda")
+        fn = rx.make_block_fn(mc, True, True, fused_mixer=fused)
+        st = [rx.init_state(mc, blk.shape[:-1], device="cuda")] * 2
+
+        def eager():
+            st[0] = rx.process_block(blk, coeffs, st[0], mc, True, True,
+                                     fused_mixer=fused)[1]
+
+        def graph():
+            st[1] = fn(blk, coeffs, st[1])[1]
+        cells[name] = (eager, graph, reps, [fn])
+
+    for c, reps in ((1, 50), (512, 20)):
+        lead = (c,) if c > 1 else ()
+        receiver_cell(f"C={c}", torch.from_numpy(rng.integers(
+            0, 256, lead + (bs,), dtype=np.uint8)).cuda(), reps)
+    ch = Channelizer([(k - 32) * 200e3 for k in range(64)], 2 * WIDE_FS,
+                     MODE, device="cuda")
+    r = rx.Receiver(MODE, stereo=True, with_rds=True, batch_shape=(64,),
+                    device="cuda")
+    wide = torch.from_numpy(rng.integers(0, 256, bs * ch.decim,
+                                         dtype=np.uint8)).cuda()
+    step = ch.phase_step(bs * ch.decim // 2)
+    wst = [ch.state, r.state]
+
+    def wide_eager():
+        out, wst[0] = chan._channelize_block(wide, ch.coeffs, wst[0],
+                                             *ch.mixer, step, ch.decim)
+        wst[1] = rx.process_block(out, r.coeffs, wst[1], mc, True, True)[1]
+    cells["wideband C=64"] = (wide_eager, lambda: r.process(ch.process(wide)),
+                              10, [ch.program, r.program])
+    block_raw = default_block_if(mc, True) * 2 * mc.rf_decim
+    receiver_cell(f"time-sharded step S={SHARDS}", fir_frontend.normalize_u8(
+        torch.from_numpy(rng.integers(0, 256, (SHARDS, block_raw),
+                                      dtype=np.uint8)).cuda()), 30,
+        fused=rx.fused_mixer_policy(1, 2))
+    return cells
+
+
+def time_programs(smi: str, rng) -> dict:
+    """Each cell in turns, eager, program, program, eager, in this one
+    call: wall per block by CUDA events over back-to-back blocks, then
+    under ``torch.profiler`` device busy, idle share (1 - busy / wall),
+    device events and host launches per block; and each program's capture
+    (eager warm-up and capture seconds, host clock; bytes its pool
+    reserved)."""
+    print(f"card for the block-program timing: {smi}")
+    res = {}
+    for name, (eager, graph, reps, fns) in _cells(rng).items():
+        turns = []
+        for kind in ("eager", "program", "program", "eager"):
+            fn = eager if kind == "eager" else graph
+            wall = cuda_ms(fn, reps, warmup=2)
+            prof = _profiled_block(fn, 5)
+            turns.append(dict(kind=kind, wall_ms=wall,
+                              idle_share=1.0 - prof["busy_ms"] / wall,
+                              **prof))
+        caps = [cap._asdict() for f in fns for cap in f.captures]
+        for cap in caps:
+            cap.update(shape=list(cap["shape"]), dtype=str(cap["dtype"]),
+                       device=str(cap["device"]))
+        res[name] = {"turns": turns, "captures": caps}
+        print(f"block programs [{smi}] {name}: " + "; ".join(
+            f"{t['kind']} wall {t['wall_ms']:.4f} ms, busy "
+            f"{t['busy_ms']:.4f} ms, idle share {t['idle_share']:.3f}, "
+            f"{t['events']:.1f} device events, {t['host_launches']:.1f} "
+            f"host launches" for t in turns) + "; capture " + ", ".join(
+            f"{c['warm_up_s']:.3f} s warm-up + {c['capture_s']:.3f} s "
+            f"capture, pool {c['pool_bytes'] / 2 ** 20:.1f} MiB (live "
+            f"{c['allocated_bytes'] / 2 ** 20:.1f} MiB)" for c in caps))
+    print("block programs json: " + json.dumps(res))
+    return res
+
+
+# --- phase 5 ----------------------------------------------------------------
 
 
 def _time_wideband(smi: str, c: int, fs_wide: float, offsets, rng,
@@ -1143,7 +1364,7 @@ def phase_timing(smi: str, k1: dict, pll: dict, k4: dict, k5: dict,
             0, 256, size=((c,) if c > 1 else ()) + (bs,),
             dtype=np.uint8)).cuda()
         ms = cuda_ms(lambda: r.process(blk), reps, warmup=3)
-        print(f"timing [{smi}]: mode-0 stereo+RDS block at C={c}: "
+        print(f"timing [{smi}]: mode-0 stereo+RDS block program at C={c}: "
               f"{ms:.3f} ms/block, {c * n_iq / ms / 1e3:.2f} IQ Msamples/s "
               f"({24.0 / ms * c:.1f}x real time over all channels)")
     h = rx.design_coeffs(mc, device="cuda").rf
@@ -1275,6 +1496,8 @@ def main() -> int:
     wideband = phase_cli(main_path["capture"])
     sharded = phase_time_sharded(rng)
     phase_multi_process(main_path["capture"], sharded["capture"])
+    check_programs(np.random.default_rng(SEED + 5))
+    time_programs(card(), np.random.default_rng(SEED + 6))
     timing = phase_timing(smi, k1, pll, k4, k5, k6)
     errs = {"fir_frontend_u8": k1["max_abs_err"],
             "pll_angles": pll["max_abs_err"],

@@ -13,8 +13,12 @@ JAX package's TPU kernels: the port has one path, whose kernels are chosen
 by device.  ``--device`` (default ``cuda``) names the device; without a
 GPU the CLI exits with an error unless ``--device cpu`` is given.
 
-Each block's outputs (audio and RDS symbols) are packed into one tensor
-on the device and copied to pinned host memory without blocking; up to
+Each block runs the receiver's block program (``Receiver.process``: on
+the card a CUDA graph of the block, replayed), behind the channelizer's
+with ``--wideband``, whose output stays on the device and is copied into
+the receiver program's input there.  Each block's outputs (audio and RDS
+symbols) are packed into one tensor on the device and copied to pinned
+host memory without blocking, on the stream behind the replay; up to
 ``--inflight`` blocks are in flight, and each is written once its CUDA
 event has completed, strictly in block order, so the output bytes do not
 depend on ``--inflight``.

@@ -566,7 +566,10 @@ extern "C" int sdr_fir_decim(const void* x, const void* state, const float* h,
   if (err != cudaSuccess) return static_cast<int>(err);
   // above 48 KB of dynamic shared memory, and all of the SM's unified
   // L1/shared memory as shared, so that the plan's blocks per SM fit: once
-  // per device and instance
+  // per device and instance.  A CUDA graph capture (models/program.py)
+  // relies on its eager warm-up having made this first call; the geometry
+  // and the Fir struct go to the kernel by value, so a captured launch
+  // keeps no host or device table of this call's addresses.
   static bool opened[kMaxDevices][6];
   const int variant = 2 * kind + (r == 8 ? 0 : 1);
   if (device >= 0 && device < kMaxDevices && !opened[device][variant]) {

@@ -530,7 +530,9 @@ __global__ void __launch_bounds__(32)
 }
 
 // Opts the kernel into its dynamic shared memory on the current device,
-// once per device.
+// once per device (a CUDA graph capture, models/program.py, relies on its
+// eager warm-up having made this first call, and the first lookup of
+// cuTensorMapEncodeTiled in encode()).
 template <bool MIX>
 cudaError_t prepare() {
   static bool done[kMaxDevices] = {};
@@ -582,6 +584,10 @@ cudaError_t encode(CUtensorMap* map, const float* base, int ld, int n) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The tensor maps are encoded on the host for every call and passed to the
+// kernel by value (__grid_constant__): a captured launch bakes in the
+// addresses of its own operands, and nothing is kept in device memory from
+// an earlier call's addresses.
 template <bool MIX>
 int launch(const float* xs, const float* mix, const float* carry0,
            const float* consts, float* out, float* carry_out, int n,

@@ -141,8 +141,10 @@ _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 def current_stream(device: int) -> int:
     """The raw handle of PyTorch's current stream on CUDA device
-    ``device``, without building a ``torch.cuda.Stream`` object (the
-    wrappers launch on it every call)."""
+    ``device``, without building a ``torch.cuda.Stream`` object.  Read
+    anew at every launch, never cached: under a CUDA graph capture
+    (``models.program``) the current stream is the capture stream, and a
+    launch must land there to be captured."""
     if _RAW_STREAM is None:
         return torch.cuda.current_stream(device).cuda_stream
     return _RAW_STREAM(device)

@@ -1,4 +1,5 @@
-"""Receiver models of the PyTorch port: the per-block DAG, the wideband
+"""Receiver models of the PyTorch port: the per-block DAG and its block
+programs (CUDA graphs of the block, ``models.program``), the wideband
 channelizer (``models.channelizer``), and the host-side RDS decode and
 group layer (``models.rds_decode``, ``models.rds_groups``)."""
 
@@ -10,5 +11,7 @@ from sdr_tpu_torch.models.receiver import (  # noqa: F401
     ReceiverState,
     design_coeffs,
     init_state,
+    make_block_fn,
     process_block,
+    run_blocks,
 )

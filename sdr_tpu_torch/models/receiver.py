@@ -6,9 +6,14 @@ Port of ``sdr_tpu/models/receiver.py``.  The per-block DAG
 
 is one function, :func:`process_block`, over an explicit state tuple, with
 the JAX package's contracts and layouts: time last, channel batch dims
-leading, the same ``NamedTuple`` fields in the same order.  Streaming over a
-recording is a Python loop over blocks (:class:`Receiver`).  The symbol-rate
-RDS decode runs on the host (``sdr_tpu_torch.models.rds_decode``).
+leading, the same ``NamedTuple`` fields in the same order.  It stays the
+eager, pure function, as the un-jitted JAX one does.  The entry points run
+it as a block program (:func:`make_block_fn`, ``models.program``): on the
+card a CUDA graph of the block, captured once per shape and replayed once
+per block, with the state donated, the counterpart of the JAX package's
+jitted ``_block_step``.  Streaming over a recording replays it block by
+block (:func:`run_blocks`, :class:`Receiver`).  The symbol-rate RDS decode
+runs on the host (``sdr_tpu_torch.models.rds_decode``).
 
 Kernels: the RF front-end is kernel K1 (``ops.fir_frontend``) on raw u8
 input and K5 (``ops.fir_decim``) on float input, as the channelizer feeds
@@ -35,6 +40,7 @@ from sdr_tpu_torch.ops import fir_decim, fir_frontend
 from sdr_tpu_torch.ops import pll as tpll
 from sdr_tpu_torch.ops import pll_cuda
 from sdr_tpu_torch.ops.fir import pin_fp32_matmul  # noqa: F401
+from sdr_tpu_torch.models import program
 
 _F32 = torch.float32
 
@@ -161,7 +167,9 @@ def init_state(mc: cfg.ModeConfig, batch_shape: tuple[int, ...] = (),
 
 
 def validate_u8_rf_state(rf_i, rf_q) -> None:
-    """Host-side guard for the u8 state-dtype contract.
+    """Host-side guard for the u8 state-dtype contract.  It reads the
+    state back to the host, so it runs on the checkpoint path only, outside
+    every block program.
 
     A carried RF tail that came from raw u8 input (or the zero init) holds
     only values k/128 for integer k in [-128, 127].  Raises ValueError when
@@ -424,22 +432,53 @@ def process_block_channel_chunked(iq: torch.Tensor, coeffs: ReceiverCoeffs,
             map_state(cat, *[st for _, st in parts]))
 
 
+def make_block_fn(mc: cfg.ModeConfig, stereo: bool = True,
+                  with_rds: bool = False, rds_debug_q: bool = False,
+                  fused_mixer: bool | None = None) -> program.Program:
+    """The block program of one mode: ``fn(iq, coeffs, state) ->
+    (BlockOutputs, state)``, the counterpart of the JAX package's
+    ``make_block_fn`` (its jitted ``_block_step``, state donated), without
+    the TPU-only kernel selectors: the kernels are chosen by device.
+
+    On the card each input shape (and type) is captured once as a CUDA
+    graph of :func:`process_block` and replayed; on the CPU the program
+    calls :func:`process_block`.  Either way the outputs and the new state
+    are :func:`process_block`'s, bit for bit.  The state is donated: the
+    call writes the new state into the program's own state buffers and
+    returns them, so a state the program returned is overwritten by the
+    next call; any other state passed in is copied into those buffers
+    first (``models.program``).  A program belongs to one stream of blocks:
+    make one per stream."""
+
+    def step(iq, coeffs, state):
+        return process_block(iq, coeffs, state, mc, stereo=stereo,
+                             with_rds=with_rds, rds_debug_q=rds_debug_q,
+                             fused_mixer=fused_mixer)
+    return program.Program(step, (mc, stereo, with_rds, rds_debug_q,
+                                  fused_mixer))
+
+
 def run_blocks(iq_blocks: torch.Tensor, coeffs: ReceiverCoeffs,
                state: ReceiverState, mc: cfg.ModeConfig, stereo: bool = True,
-               with_rds: bool = False, fused_mixer: bool | None = None
+               with_rds: bool = False, fused_mixer: bool | None = None,
+               fn: program.Program | None = None
                ) -> tuple[BlockOutputs, ReceiverState]:
-    """Stream blocks through :func:`process_block`: the counterpart of the
-    JAX package's ``run_blocks_scan``, a Python loop where JAX scans.
+    """Stream blocks through a block program, one replay per block: the
+    counterpart of the JAX package's ``run_blocks_scan``, whose scan
+    compiles the whole recording into one program (a graph of a whole
+    chunk of blocks is not built here).
 
     ``iq_blocks`` is (n_blocks, ..., block_len): the block axis first, then
     optional channel-batch dims.  Returns the outputs stacked
-    (n_blocks, ..., out_len) and the final state.  ``fused_mixer`` pins the
-    PLL kernel for every block (None: ``process_block``'s shape policy)."""
+    (n_blocks, ..., out_len) and the final state, which is ``fn``'s state
+    buffers.  ``fn`` is the program to replay (default: a new
+    :func:`make_block_fn` for this call); ``fused_mixer`` pins the PLL
+    kernel of that default (None: ``process_block``'s shape policy)."""
+    if fn is None:
+        fn = make_block_fn(mc, stereo, with_rds, fused_mixer=fused_mixer)
     outs = []
     for b in range(iq_blocks.shape[0]):
-        out, state = process_block(iq_blocks[b], coeffs, state, mc,
-                                   stereo=stereo, with_rds=with_rds,
-                                   fused_mixer=fused_mixer)
+        out, state = fn(iq_blocks[b], coeffs, state)
         outs.append(out)
     return map_state(lambda *arm: torch.stack(arm), *outs), state
 
@@ -458,8 +497,13 @@ def resolve_device(device: torch.device | str) -> torch.device:
 class Receiver:
     """Stateful wrapper: owns coeffs + running state on one device.
 
-    ``process(iq)`` consumes one block; ``run(iq)`` a whole recording.  The
-    state is exposed for checkpoint/resume (``sdr_tpu_torch.convert``).
+    ``process(iq)`` consumes one block; ``run(iq)`` a whole recording.  Both
+    replay the receiver's block program (``self.program``,
+    :func:`make_block_fn`): on the card a CUDA graph per block shape.  The
+    state is exposed for checkpoint/resume (``sdr_tpu_torch.convert``): it
+    is the program's state buffers, which the next block overwrites in
+    place, so read or clone it between blocks; a state assigned to it (a
+    checkpoint) is copied into those buffers at the next block.
     ``device`` defaults to the card; without one it raises
     (:func:`resolve_device`) unless ``device="cpu"`` is passed.  Creating
     one turns TF32 off (:func:`pin_fp32_matmul`).
@@ -477,22 +521,25 @@ class Receiver:
         self.with_rds = with_rds and self.mc.rds is not None
         self.coeffs = design_coeffs(self.mc, device=self.device)
         self.state = init_state(self.mc, batch_shape, device=self.device)
+        self.program = make_block_fn(self.mc, self.stereo, self.with_rds)
 
-    def _as_input(self, x) -> torch.Tensor:
+    def _as_input(self, x, to_device: bool = True) -> torch.Tensor:
         """uint8 stays uint8 (normalized on the device), anything else
-        becomes float32; the result is contiguous on this receiver's
-        device."""
+        becomes float32; the result is contiguous on this receiver's device
+        (``to_device``), or left where it is, for the program to copy into
+        its static input."""
         if isinstance(x, np.ndarray) and not x.flags.writeable:
             x = np.array(x)     # torch wraps only writable numpy memory
         t = torch.as_tensor(x)
         if t.dtype != torch.uint8:
             t = t.to(_F32)
-        return t.to(self.device).contiguous()
+        return t.to(self.device).contiguous() if to_device else t
 
     def process(self, iq_block) -> BlockOutputs:
-        out, self.state = process_block(
-            self._as_input(iq_block), self.coeffs, self.state, self.mc,
-            stereo=self.stereo, with_rds=self.with_rds)
+        """One block through the block program; a host block is copied
+        straight into the program's static input."""
+        out, self.state = self.program(self._as_input(iq_block, False),
+                                       self.coeffs, self.state)
         return out
 
     def _run_blocks(self, iq: torch.Tensor, n_blocks: int,
@@ -502,7 +549,7 @@ class Receiver:
             iq.shape[:-1] + (n_blocks, block_size)).movedim(-2, 0)
         outs, self.state = run_blocks(blocks.contiguous(), self.coeffs,
                                       self.state, self.mc, self.stereo,
-                                      self.with_rds)
+                                      self.with_rds, fn=self.program)
         return outs
 
     def run(self, iq, block_size: Optional[int] = None) -> BlockOutputs:

@@ -89,11 +89,17 @@ def _resample_band_np(n_taps: int, decim: int,
     return o_idx, np.clip(n_idx, 0, n_taps - 1), valid, t_win
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache
 def _maps_on(make_maps, args: tuple, device: torch.device) -> tuple:
     """The numpy index maps of ``make_maps(*args)`` as tensors on
     ``device``, made once per shape and device so a streaming loop copies
-    no index map per block."""
+    no index map per block.
+
+    The first call for a shape copies the maps from the host, which a CUDA
+    graph cannot capture: a block program (``models.program``) makes that
+    call in its eager warm-up, before the capture.  The graph then reads
+    the maps by address, so no entry is ever evicted (the cache is
+    unbounded: a few entries per mode and block length)."""
     return tuple(torch.as_tensor(a, device=device) if isinstance(a, np.ndarray)
                  else a for a in make_maps(*args))
 

@@ -233,7 +233,11 @@ class _Recipe(NamedTuple):
     y_shape: tuple
 
 
-# layout key (types, shapes, strides, decimation, devices) -> _Recipe
+# layout key (types, shapes, strides, decimation, devices) -> _Recipe.
+# A recipe is read on the host at launch only (the kernel takes its
+# geometry by value), so a captured block program (models.program) does not
+# depend on the entry staying; its first use for a layout, in the program's
+# eager warm-up, also queries the card's SM count (_sms) outside the capture.
 _recipes: dict[tuple, _Recipe] = {}
 
 

@@ -23,6 +23,7 @@ cos/sin runs once over the whole block outside it.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Sequence
 
@@ -83,9 +84,21 @@ def arm(state: PllState, i: int) -> PllState:
 
 
 def loop_constants(params_seq: Sequence[PllParams], dtype: torch.dtype,
-                   device: torch.device) -> dict[str, torch.Tensor]:
+                   device: torch.device | str) -> dict[str, torch.Tensor]:
     """Per-arm loop constants as (K,) tensors.  Each is computed in float64
-    on the host and rounded once to ``dtype``, as the JAX package does."""
+    on the host and rounded once to ``dtype``, as the JAX package does.
+
+    Made once per (params, dtype, device) and kept on the device for the
+    life of the process (:func:`_loop_constants`): a block uploads nothing
+    from the host, and a captured block program reads these tensors by
+    address.  The dict and its tensors are shared: read them, never write
+    them."""
+    return _loop_constants(tuple(params_seq), dtype, torch.device(device))
+
+
+@functools.cache
+def _loop_constants(params_seq: tuple[PllParams, ...], dtype: torch.dtype,
+                    device: torch.device) -> dict[str, torch.Tensor]:
     vec = lambda vals: torch.tensor(vals, dtype=dtype, device=device)
     return {
         "kp": vec([p.norm_bandwidth * _CP for p in params_seq]),

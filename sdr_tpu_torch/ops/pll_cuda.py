@@ -288,6 +288,40 @@ chain_floor.launches = 0
 # --- drop-ins for ops.pll --------------------------------------------------
 
 
+# The kernels' constants are made once per (params, batch, device) and kept
+# on the device for the life of the process: a block uploads nothing from
+# the host, and a captured block program (models.program) reads them by
+# address, so no cache entry may ever be freed.  Shared: never written.
+
+
+@functools.cache
+def lane_constants(params_seq: tuple[PllParams, ...], nl: int,
+                   device: torch.device) -> dict[str, torch.Tensor]:
+    """The (K,) loop constants of ``ops.pll.loop_constants`` repeated over
+    a batch of ``nl``: (L,) per lane, lanes ``b*K + k``."""
+    return {name: v.repeat(nl) for name, v in
+            loop_constants(params_seq, _F32, device).items()}
+
+
+@functools.cache
+def breakpoints_on(device: torch.device) -> torch.Tensor:
+    """:func:`turn_breakpoints` as a (4,) float32 tensor on ``device``."""
+    return torch.from_numpy(turn_breakpoints()).to(device)
+
+
+@functools.cache
+def kernel_constants(params_seq: tuple[PllParams, ...], nl: int,
+                     mixer: bool, device: torch.device) -> torch.Tensor:
+    """(8, L) constants of K2, or (10, L) of K3: the loop constants (kp,
+    ki, w, modulus; K3 also the NCO scale and phase adjust), then the four
+    turn breakpoints, each repeated over the L lanes."""
+    c = lane_constants(params_seq, nl, device)
+    rows = LaneLayout._CONST_ROWS if mixer else LaneLayout._CONST_ROWS[:4]
+    total = c["kp"].shape[0]
+    return torch.cat([torch.stack([c[r] for r in rows]),
+                      breakpoints_on(device)[:, None].expand(4, total)])
+
+
 class LaneLayout:
     """The kernels' operands for one call: lanes are (batch x arm),
     flattened as ``b*K + k``, and time is the leading axis, with rows
@@ -304,9 +338,9 @@ class LaneLayout:
         self.nl = math.prod(self.lead)
         self.total = self.nl * self.k
         self.device = x.device
+        self.params = tuple(params_seq)
         # (K,) per-arm constants repeated over the batch -> (L,)
-        self.c = {name: v.repeat(self.nl) for name, v in
-                  loop_constants(params_seq, _F32, x.device).items()}
+        self.c = lane_constants(self.params, self.nl, x.device)
 
     def time_major(self, a: torch.Tensor) -> torch.Tensor:
         """(..., K, N) -> (N, L) float32, as an (N, L) view of a
@@ -328,11 +362,8 @@ class LaneLayout:
 
     def consts(self, mixer: bool) -> torch.Tensor:
         """(8, L) constants of K2, or (10, L) of K3: the loop constants,
-        then the four turn breakpoints."""
-        rows = self._CONST_ROWS if mixer else self._CONST_ROWS[:4]
-        bps = torch.from_numpy(turn_breakpoints()).to(self.device)
-        return torch.cat([torch.stack([self.c[r] for r in rows]),
-                          bps[:, None].expand(4, self.total)])
+        then the four turn breakpoints (:func:`kernel_constants`)."""
+        return kernel_constants(self.params, self.nl, mixer, self.device)
 
     def carry0(self, state: PllState, mixer: bool) -> torch.Tensor:
         """(4, L) initial carry of K2, or (6, L) of K3, from ``state``."""

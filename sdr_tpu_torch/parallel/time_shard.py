@@ -19,7 +19,7 @@ Where the JAX package runs one ``shard_map`` program over a device mesh,
 each process here runs its own cells of a
 :class:`~sdr_tpu_torch.parallel.mesh.Mesh` (all of them on a mesh of one
 process).  The shards that share a device run as rows of one batch through
-the same ``process_block`` as a contiguous run: on one card, time sharding
+the same block program as a contiguous run: on one card, time sharding
 turns the serial PLL of one station into S (or C x S) lanes.  The halo
 exchange inside a process is kernel K6 (``parallel.halo``; one launch per
 card, the shards of one card handed over as row blocks of one buffer): on
@@ -185,38 +185,45 @@ def _reset_first(state: rx.ReceiverState, fresh: rx.ReceiverState,
 
 
 class _Runner:
-    """Per device: coefficients, state, and one process_block step over
-    the device's batch rows."""
+    """Per device: coefficients, state, and one block program
+    (``models.receiver.make_block_fn``) over the device's batch rows: the
+    counterpart of the JAX package's jitted time-sharded step.  K6 and the
+    edge exchange run outside the programs, once per call."""
 
     def __init__(self, sh: _Shards, mc: cfg.ModeConfig, stereo: bool,
                  with_rds: bool):
-        self.sh, self.mc, self.stereo, self.with_rds = sh, mc, stereo, with_rds
+        self.sh, self.mc = sh, mc
         self.coeffs = [rx.design_coeffs(mc, device=g.device)
                        for g in sh.groups]
-        self.states = [rx.init_state(mc, (len(g.cells) * sh.c_local,),
-                                     device=g.device) for g in sh.groups]
+        self.states = [self.fresh(g) for g in sh.groups]
+        self.fns = [rx.make_block_fn(mc, stereo, with_rds,
+                                     fused_mixer=sh.fused_mixer)
+                    for _ in sh.groups]
+
+    def fresh(self, g: _Group) -> rx.ReceiverState:
+        return rx.init_state(self.mc, (len(g.cells) * self.sh.c_local,),
+                             device=g.device)
 
     def step(self, blocks: list[torch.Tensor]) -> list[rx.BlockOutputs]:
-        """One block on every device (launched device after device, so
-        several cards run at once)."""
+        """One block on every device: one replay each, launched device
+        after device without waiting, so several cards run at once."""
         outs = []
         for g, blk in enumerate(blocks):
-            out, self.states[g] = rx.process_block(
-                blk, self.coeffs[g], self.states[g], self.mc,
-                stereo=self.stereo, with_rds=self.with_rds,
-                fused_mixer=self.sh.fused_mixer)
+            out, self.states[g] = self.fns[g](blk, self.coeffs[g],
+                                              self.states[g])
             outs.append(out)
         return outs
 
     def warm_up(self, halos: list[torch.Tensor]) -> None:
-        """Run the halo blocks (outputs discarded), then reset shard 0."""
-        fresh = list(self.states)
+        """Run the halo blocks (outputs discarded), then reset shard 0 to a
+        fresh state made anew, not one kept from before the warm-up: a
+        state the programs returned is their own buffers, which every step
+        overwrites in place (the state is donated)."""
         br = self.sh.block_raw
         for b in range(self.sh.n_skip):
             self.step([h[:, b * br:(b + 1) * br] for h in halos])
-        self.states = [_reset_first(st, f, self.sh.first_rows(g))
-                       for st, f, g in zip(self.states, fresh,
-                                           self.sh.groups)]
+        self.states = [_reset_first(st, self.fresh(g), self.sh.first_rows(g))
+                       for st, g in zip(self.states, self.sh.groups)]
 
     def run(self, xs: list[torch.Tensor], n_blocks: int
             ) -> list[dict[str, torch.Tensor]]:
@@ -313,7 +320,7 @@ def time_sharded_receive(iq: np.ndarray, mesh: Mesh,
     buffer [halo | segment] per shard; K6 fills the halos inside the
     process, :func:`exchange_edges` those across its edge, the warm-up
     runs over them and is discarded, and every block streams through
-    ``process_block`` over the device's rows.  Returns this process's
+    the device's block program over its rows.  Returns this process's
     outputs laid out exactly like a contiguous run of its part ((n_out,),
     or (C_p, n_out)) on its first device; disabled arms are empty."""
     mc, with_rds, sh, segs = _prepare(iq, mesh, mode, stereo, with_rds,

@@ -34,7 +34,13 @@ axis with the halo inside each process or across the process edge,
 against one process running the same mesh on one card (1e-5 on
 fm_demod and mono, 5e-3 on the PLL arms) and a contiguous run.  The edge
 exchange of halos on the card stages its messages by the group's backend:
-pinned host memory for gloo, the card for NCCL.
+pinned host memory for gloo, the card for NCCL.  The block programs (CUDA
+graphs of the receiver's block, of the channelizer's and of the
+time-sharded step) replay bit-equal (torch.equal) to the eager block over
+8 chained blocks, every output arm and state leaf, for each kernel and
+arm combination of the paths; ``receive()``'s tail block, a checkpoint
+resumed after 5 program blocks, and a capture made to fail (it raises,
+nothing runs eagerly instead).
 """
 
 import json
@@ -44,10 +50,14 @@ import pytest
 import torch
 import torch.distributed as dist
 
+import sdr_tpu_torch
 import torch_multiprocess
+from sdr_tpu_torch import checkpoint as pckpt
 from sdr_tpu_torch import config as cfg
 from sdr_tpu_torch import stimulus
 from sdr_tpu_torch.golden import filters as gfilt
+from sdr_tpu_torch.models import channelizer as pchan
+from sdr_tpu_torch.models import program as pprog
 from sdr_tpu_torch.models import receiver as prx
 from sdr_tpu_torch.ops import fir_decim, fir_frontend, pll_cuda
 from sdr_tpu_torch.ops import pll as tpll
@@ -279,7 +289,8 @@ def test_float_receiver_on_card_matches_cpu(dev):
     before = fir_decim.fir_block_decim.launches
     og = gpu.run(x, block_size=19_200)
     oc = cpu.run(x, block_size=19_200)
-    assert fir_decim.fir_block_decim.launches == before + 2
+    # two replays of the block program and its eager warm-up
+    assert fir_decim.fir_block_decim.launches == before + 2 + 1
     _close(og.fm_demod, oc.fm_demod, 1e-5)
     for f in ("left", "right", "rds_symbols"):
         _close(getattr(og, f), getattr(oc, f), 5e-3)
@@ -357,7 +368,8 @@ def test_receiver_on_card_matches_cpu(dev, c):
     oc = cpu.run(iq, block_size=19_200)
     used = (pll_cuda.pll_mixer.launches if c > 1
             else pll_cuda.pll_angles.launches)
-    assert used == counts[1 if c > 1 else 0] + 2
+    # two replays of the block program and its eager warm-up
+    assert used == counts[1 if c > 1 else 0] + 2 + 1
     _close(og.fm_demod, oc.fm_demod, 1e-5)
     for f in ("left", "right", "rds_symbols"):
         _close(getattr(og, f), getattr(oc, f), 5e-3)
@@ -624,3 +636,173 @@ def test_exchange_edges_stages_by_backend(dev, monkeypatch, backend):
                                             torch.cuda.current_device())
     assert len(seen) == 4
     assert torch.equal(ext[:, :halo], ext[:, -halo:])
+
+
+# --- block programs: CUDA graphs of the block against the eager block -------
+
+
+def _assert_trees_equal(got, want, label: str) -> None:
+    """torch.equal leaf by leaf, naming the first leaf that differs."""
+    for i, (a, b) in enumerate(zip(pprog.tree_leaves(got),
+                                   pprog.tree_leaves(want))):
+        assert a.shape == b.shape and torch.equal(a, b), (
+            f"{label}, leaf {i}: max abs diff "
+            f"{(a.float() - b.float()).abs().max().item() if a.numel() else 0}")
+
+
+# (mode, channels, stereo, with_rds, rds_debug_q, float input): kernels
+PROGRAM_CASES = {
+    "u8 C=1": (0, 1, True, True, False, False),             # K1, K2
+    "u8 C=512": (0, 512, True, True, False, False),         # K1, K3
+    "float C=1": (0, 1, True, True, False, True),           # K5, K2
+    "float 8 rows (time-sharded step)": (0, 8, True, True, False, True),
+    "mode 2 (44.1 kHz resampler)": (2, 1, True, True, False, False),
+    "stereo no RDS": (0, 1, True, False, False, False),     # K1, K3 (1 arm)
+    "rds_debug_q": (0, 1, True, True, True, False),         # K1, K2 unfused
+}
+
+
+@pytest.mark.parametrize("case", list(PROGRAM_CASES))
+def test_block_program_replay_equals_eager(dev, case):
+    """8 chained blocks through the block program (one capture, 8
+    replays) and through the eager ``process_block``, each carrying its
+    own state: every output arm and state leaf torch.equal.  Each replay
+    counts its graph's kernel launches: the eager blocks, the warm-up and
+    the replays launch the same kernels."""
+    mode, c, stereo, rds, debug_q, as_float = PROGRAM_CASES[case]
+    mc = cfg.get_mode_config(mode)
+    bs = mc.default_block_size(rds and mc.rds is not None)
+    lead = (c,) if c > 1 else ()
+    rng = np.random.default_rng(31)
+    iq = torch.from_numpy(rng.integers(0, 256, lead + (8 * bs,),
+                                       dtype=np.uint8)).to(dev)
+    if as_float:
+        iq = fir_frontend.normalize_u8(iq)
+    coeffs = prx.design_coeffs(mc, device=dev)
+    fn = prx.make_block_fn(mc, stereo, rds, rds_debug_q=debug_q)
+    s_eager = s_prog = prx.init_state(mc, lead, device=dev)
+    before = [f.launches for f in pprog.COUNTED]
+    for b in range(8):
+        blk = iq[..., b * bs:(b + 1) * bs].contiguous()
+        o_eager, s_eager = prx.process_block(blk, coeffs, s_eager, mc, stereo,
+                                             rds, rds_debug_q=debug_q)
+        o_prog, s_prog = fn(blk, coeffs, s_prog)
+        _assert_trees_equal(o_prog, o_eager, f"{case} block {b} outputs")
+        _assert_trees_equal(s_prog, s_eager, f"{case} block {b} state")
+    torch.cuda.synchronize()
+    assert len(fn.captures) == 1 and fn.captures[0].pool_bytes > 0
+    runs = 8 + 1 + 8
+    added = [f.launches - n for f, n in zip(pprog.COUNTED, before)]
+    assert any(added) and all(a % runs == 0 for a in added), added
+
+
+def test_receive_tail_block_equals_eager(dev):
+    """``receive()`` on a capture with a short tail: the whole blocks
+    replay one program and the tail captures its own graph; the audio is
+    bit-equal to the eager blocks'."""
+    mc = cfg.get_mode_config(0)
+    iq = synth.synthesize_fm(duration_s=0.3, mode=0, with_rds=True,
+                             seed=8).iq_u8
+    bs = mc.default_block_size(True)
+    assert len(iq) % bs and len(iq) % 19_200 == 0
+    got = sdr_tpu_torch.receive(iq, 0, stereo=True, rds=True, device=dev)
+    coeffs = prx.design_coeffs(mc, device=dev)
+    st = prx.init_state(mc, device=dev)
+    outs = []
+    for b0 in range(0, len(iq), bs):
+        blk = torch.from_numpy(iq[b0:b0 + bs].copy()).to(dev)
+        out, st = prx.process_block(blk, coeffs, st, mc, True, True)
+        outs.append(out)
+    for f in ("mono", "left", "right"):
+        want = torch.cat([getattr(o, f) for o in outs]).cpu().numpy()
+        np.testing.assert_array_equal(getattr(got, f), want, err_msg=f)
+
+
+def test_channelizer_program_equals_eager(dev):
+    """The channelizer's program (mixer + K5), C=64 stations at 19.2 MS/s,
+    3 chained blocks: outputs and state torch.equal to its eager block."""
+    mc = cfg.get_mode_config(0)
+    ch = pchan.Channelizer([(k - 32) * 200e3 for k in range(64)], 19.2e6,
+                           0, device=dev)
+    rng = np.random.default_rng(32)
+    n_bytes = mc.default_block_size(True) * ch.decim
+    st = ch.state
+    for b in range(3):
+        blk = torch.from_numpy(rng.integers(0, 256, n_bytes,
+                                            dtype=np.uint8)).to(dev)
+        out = ch.process(blk)
+        want, st = pchan._channelize_block(blk, ch.coeffs, st, *ch.mixer,
+                                           ch.phase_step(n_bytes // 2),
+                                           ch.decim)
+        _assert_trees_equal(out, want, f"channelizer block {b}")
+        _assert_trees_equal(ch.state, st, f"channelizer state {b}")
+    assert len(ch.program.captures) == 1
+
+
+def test_checkpoint_resume_after_program_blocks(dev, tmp_path):
+    """A checkpoint of the program's state saved after 5 blocks and
+    resumed in a new ``Receiver`` gives the uninterrupted run's next
+    blocks bit for bit."""
+    mc = cfg.get_mode_config(0)
+    bs = mc.default_block_size(True)
+    iq = synth.synthesize_fm(duration_s=0.2, mode=0, with_rds=True,
+                             seed=9).iq_u8[:8 * bs]
+    blocks = [iq[b * bs:(b + 1) * bs] for b in range(8)]
+    r = prx.Receiver(0, True, True, device=dev)
+    for blk in blocks[:5]:
+        r.process(blk)
+    path = pckpt.save(str(tmp_path / "ck"), r.state, 0, block_count=5,
+                      input_dtype="uint8")
+    want = [r.process(blk) for blk in blocks[5:]]
+    r2 = prx.Receiver(0, True, True, device=dev)
+    r2.state, _ = pckpt.load(path, expect_input_dtype="uint8", device=dev)
+    for b, blk in enumerate(blocks[5:]):
+        _assert_trees_equal(r2.process(blk), want[b], f"resumed block {b}")
+    _assert_trees_equal(r2.state, r.state, "resumed state")
+
+
+def _uploading_constants(params_seq, nl, mixer, device):
+    """The PLL kernels' constant rows as they were made before they were
+    cached: the breakpoints uploaded from host memory on every call."""
+    c = pll_cuda.lane_constants(params_seq, nl, device)
+    rows = ("kp", "ki", "w", "m", "scale", "adj")[:6 if mixer else 4]
+    bps = torch.from_numpy(pll_cuda.turn_breakpoints()).to(device)
+    return torch.cat([torch.stack([c[r] for r in rows]),
+                      bps[:, None].expand(4, c["kp"].shape[0])])
+
+
+def _reading_demod(real):
+    def demod(i, q, prev):
+        y, st = real(i, q, prev)
+        float(y.sum())              # a read-back to the host
+        return y, st
+    return demod
+
+
+@pytest.mark.parametrize("fault", ["host upload", "host read"])
+def test_failed_capture_raises(dev, monkeypatch, fault):
+    """A block that uploads from pageable host memory, or reads a result
+    back, cannot be captured: the program raises and keeps no graph, and
+    nothing runs eagerly in its place.  A program made afterwards still
+    captures and replays."""
+    if fault == "host upload":
+        monkeypatch.setattr(pll_cuda, "kernel_constants",
+                            _uploading_constants)
+    else:
+        monkeypatch.setattr(prx.tdemod, "fm_demod_quad",
+                            _reading_demod(prx.tdemod.fm_demod_quad))
+    mc = cfg.get_mode_config(0)
+    blk = torch.from_numpy(np.random.default_rng(33).integers(
+        0, 256, mc.default_block_size(True), dtype=np.uint8)).to(dev)
+    coeffs = prx.design_coeffs(mc, device=dev)
+    fn = prx.make_block_fn(mc, True, True)
+    with pytest.raises(RuntimeError):
+        fn(blk, coeffs, prx.init_state(mc, device=dev))
+    assert not fn.keys() and not fn.captures
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    fn = prx.make_block_fn(mc, True, True)
+    out, _ = fn(blk, coeffs, prx.init_state(mc, device=dev))
+    want, _ = prx.process_block(blk, coeffs, prx.init_state(mc, device=dev),
+                                mc, True, True)
+    _assert_trees_equal(out, want, "after a failed capture")

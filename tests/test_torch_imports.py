@@ -7,7 +7,9 @@
   scanning the imports of the port, ``chip_smoke.py``, the card-only
   tests and the multi-process script they drive.
 * A kernel wrapper handed a CUDA tensor launches its kernel or raises: no
-  kernel module catches an exception and falls back to the plain version.
+  kernel module catches an exception and falls back to the plain version,
+  and a block program whose capture fails re-raises instead of running the
+  eager block.
 """
 
 import ast
@@ -91,6 +93,15 @@ def test_kernel_modules_do_not_fall_back(path):
     handlers = [n.lineno for n in ast.walk(tree)
                 if isinstance(n, (ast.Try, ast.ExceptHandler))]
     assert not handlers, f"{path}: exception handler at lines {handlers}"
+
+
+def test_block_program_does_not_fall_back():
+    """Every exception handler of the block programs re-raises: a capture
+    or replay that fails propagates instead of running the eager block."""
+    tree = ast.parse((PORT / "models/program.py").read_text())
+    handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    assert handlers and all(isinstance(h.body[-1], ast.Raise)
+                            and h.body[-1].exc is None for h in handlers)
 
 
 def test_kernel_modules_import_no_triton_or_nvcc_at_import():
