@@ -27,8 +27,9 @@ Phases, one line of output each (any failure raises and exits non-zero):
    2 x 4 channel x time grid);
 3. the paths, each with the launch counts set to 0 just before it and
    read just after: (a) ``sdr_tpu_torch.receive`` on a synthesized 1 s
-   mode-0 stereo+RDS capture, then a 512-channel ``Receiver`` for 4 blocks
-   whose channel 0 must match a single-channel run (K1, K2, K3; the
+   mode-0 stereo+RDS capture, then a 512-channel ``Receiver`` for
+   SCAN_BLOCKS + 2 blocks (a chunk graph and a tail) whose channel 0 must
+   match a single-channel run (K1, K2, K3; the
    linear arms at 1e-5, the PLL-driven ones at 5e-3); (b) the
    CLI, ``python -m sdr_tpu_torch.cli`` driven in process, with
    ``--wideband`` on a synthesized 1 s 9.6 MS/s capture of two stations
@@ -36,9 +37,11 @@ Phases, one line of output each (any failure raises and exits non-zero):
    (d) ``time_sharded_receive`` of a synthesized 4 s capture over 8 time
    shards on one card (K6 through its row-block entry, K5, K2), held to
    the JAX package's gates
-   against a contiguous ``Receiver.run`` on the card, then its chunked
-   variant (bit-equal), a ``channel_sharded_run`` of 8 channels over two
-   shards of the card, and, with two or more cards, the same time-sharded
+   against a contiguous ``Receiver.run`` on the card and torch.equal to
+   the same run on the per-block program, then its chunked variant
+   (bit-equal), a ``channel_sharded_run`` of 8 channels over two shards of
+   the card (torch.equal to the per-block program), and, with two or more
+   cards, the same time-sharded
    run across two cards; (e) the mesh spanning 2 processes on cuda:0
    (``multihost.setup``, gloo), through
    ``scripts/torch_multihost_scaling.py``: the C=512 u8 batch as
@@ -50,20 +53,28 @@ Phases, one line of output each (any failure raises and exits non-zero):
    time per call printed beside K6's; every process must exit 0 within
    its timeout.  Stereo separation and RDS info words are
    checked against what each station transmitted.  Every entry point
-   runs block programs (CUDA graphs of the block, ``models.program``), so
-   these gates hold the programs too; the launch counts include each
-   program's eager warm-up, and per block they are read over the block
-   runs (replays and warm-ups);
+   runs block programs (``models.program``): ``receive()``,
+   ``Receiver.run``/``iter_run``, channel and time sharding a CUDA graph
+   of ``receiver.SCAN_BLOCKS`` chained blocks per whole chunk (a chunk
+   graph, ``Program.scan``) and the block's graph for the rest, so these
+   gates hold the programs too; the main path fails unless a chunk graph
+   ran and prints host graph launches per block; the launch counts
+   include each program's eager warm-up, and per block they are read over
+   the block runs (the blocks the replays ran, and warm-ups);
 4. block programs: each against the eager block, torch.equal on every
    output and state leaf over 8 chained blocks (u8 at C=1 and C=512,
    float at C=1 and 8 rows, mode 2, stereo without RDS, ``rds_debug_q``;
-   the channelizer's program at C=64 over 3 blocks); then four cells
-   timed in turns, eager, program, program, eager (mode-0 stereo+RDS u8
-   at C=1 and C=512, the wideband block of C=64 stations at 19.2 MS/s,
-   the time-sharded step at S=8): wall per block by CUDA events, device
-   busy, idle share, device events and host launches per block under
-   ``torch.profiler``, and each program's capture time and pool bytes,
-   after the card's name and power limit;
+   the channelizer's program at C=64 over 3 blocks); each chunk program
+   against the per-block program, torch.equal, over a chunk and a tail
+   (u8 at C=1 and C=512, float at C=1, mode 2, mode 1's 50,040-byte
+   blocks) and ``process``/``run``/``process`` on one ``Receiver``; then
+   four cells timed in turns, eager, program, chunk, chunk, program, eager
+   (mode-0 stereo+RDS u8 at C=1 and C=512, the time-sharded step at S=8;
+   the wideband block of C=64 stations at 19.2 MS/s without the chunk
+   turns): wall per block by CUDA events, device busy, idle share, device
+   events and host launches per block under ``torch.profiler``, and each
+   program's capture time and pool bytes, after the card's name and power
+   limit;
 5. timing with CUDA events: block time and IQ rate at C=1 and C=512, the
    wideband block (channelizer + receiver) at C=2 and C=64, each kernel
    against its plain version, its bound and, where one PyTorch call
@@ -607,19 +618,27 @@ def phase_main_path(rng) -> dict:
     res = synth.synthesize_fm(duration_s=1.0, mode=MODE, seed=SEED,
                               with_rds=True)
     bs = mc.default_block_size(True)
-    batch = _serving_batch(res.iq_u8, 512, 4 * bs, rng)
+    # a chunk graph of the batch and two blocks of its tail
+    n_batch = rx.SCAN_BLOCKS + 2
+    batch = _serving_batch(res.iq_u8, 512, n_batch * bs, rng)
 
     _reset_counts()
     out = sdr_tpu_torch.receive(res.iq_u8, mode=MODE, stereo=True, rds=True,
                                 device="cuda")
-    c1_runs = program.counts["replays"] + program.counts["warm_ups"]
+    c1_runs = program.counts["blocks"] + program.counts["warm_ups"]
     r512 = rx.Receiver(MODE, stereo=True, with_rds=True, batch_shape=(512,),
                        device="cuda")
     outs512 = r512.run(batch)
     launches = _read_counts("main path", ("fir_frontend_u8", "pll_angles",
                                           "pll_mixer"))
-    runs = program.counts["replays"] + program.counts["warm_ups"]
+    runs = program.counts["blocks"] + program.counts["warm_ups"]
     graphs = program.counts["captures"]
+    replays, blocks = program.counts["replays"], program.counts["blocks"]
+    chunks = [c.blocks for c in r512.program.captures]
+    if replays >= blocks or rx.SCAN_BLOCKS not in chunks:
+        raise AssertionError(f"main path: {replays} graph replays for "
+                             f"{blocks} blocks, C=512 captures of {chunks} "
+                             "blocks: no chunk graph ran")
 
     sep_l, sep_r = stereo_separation_db(out.left, out.right, mc.audio_fs,
                                         800.0, 1500.0)
@@ -636,9 +655,12 @@ def phase_main_path(rng) -> dict:
                              f"transmitted; need all, and >= {n_groups}")
     print(f"main path: receive() 1 s capture: separation L {sep_l:.1f} dB, "
           f"R {sep_r:.1f} dB; RDS {len(words)} frames, all info words "
-          f"transmitted ({n_groups} groups sent); C=512 x 4 blocks; "
-          f"{graphs} block programs captured, {runs} block runs (replays "
-          f"and each capture's eager warm-up); launches {launches}")
+          f"transmitted ({n_groups} groups sent); C=512 x {n_batch} "
+          f"blocks; {graphs} graphs captured (C=512: of {chunks} blocks), "
+          f"{blocks} blocks in {replays} graph replays ("
+          f"{replays / blocks:.3f} host graph launches per block; chunk "
+          f"graphs of {rx.SCAN_BLOCKS} blocks), {runs} block runs with "
+          f"each capture's eager warm-up; launches {launches}")
 
     # block runs of the path: receive()'s blocks (K1 and K2 at C=1), the
     # batch's (K1 and K3), each counting its program's warm-up
@@ -654,7 +676,8 @@ def phase_main_path(rng) -> dict:
     if not all(errs[a] <= ARM_ATOL[a] for a in ARM_ATOL):
         raise AssertionError(f"C=512 channel 0 vs C=1: max err {errs} (atol "
                              f"{ARM_ATOL})")
-    print("main path: C=512 channel 0 vs C=1 over 4 blocks, max abs err "
+    print(f"main path: C=512 channel 0 vs C=1 over {n_batch} blocks, max "
+          "abs err "
           + ", ".join(f"{a} {e:.3g} (atol {ARM_ATOL[a]})"
                       for a, e in errs.items()))
     return {"launches": launches, "per_block": per_block, "capture": res}
@@ -716,7 +739,7 @@ def phase_cli(res) -> dict:
     wide = _read_counts("wideband CLI", ("fir_decim_f32", "pll_angles"))
     # each wideband block runs the channelizer's program and the
     # receiver's; each program also ran its capture's eager warm-up
-    wide_runs = (program.counts["replays"] + program.counts["warm_ups"]) / 2
+    wide_runs = (program.counts["blocks"] + program.counts["warm_ups"]) / 2
     if rc != 0 or len(decs) != len(WIDE_OFFSETS):
         raise AssertionError(f"wideband CLI exited {rc} with {len(decs)} "
                              "RDS decoders")
@@ -814,6 +837,7 @@ def phase_time_sharded(rng) -> dict:
     _reset_counts()
     khalo.halo_shift_right.row_block_launches = 0
     out = time_sharded_receive(iq, mesh, MODE, stereo=True, with_rds=True)
+    replays = program.counts["replays"]
     launches = _read_counts("time-sharded path", ("halo_shift_right",
                                                   "fir_decim_f32",
                                                   "pll_angles"))
@@ -832,25 +856,45 @@ def phase_time_sharded(rng) -> dict:
           f"({n_groups} groups sent); launches {launches}, K6 through the "
           f"row-block entry {row_blocks}")
 
-    chunks = list(time_sharded_receive_chunked(iq, mesh, MODE, stereo=True,
-                                               with_rds=True, chunk_blocks=7))
+    per_block = _per_block(lambda: time_sharded_receive(
+        iq, mesh, MODE, stereo=True, with_rds=True))
+    bad = _departs(out, per_block)
+    if bad or replays != 1 + 20 // rx.SCAN_BLOCKS + 20 % rx.SCAN_BLOCKS:
+        raise AssertionError(f"time-sharded: {replays} graph replays; chunk "
+                             f"graphs vs the per-block program: {bad}")
+    print(f"time-sharded on chunk graphs (the warm-up's 2 blocks as one "
+          f"graph, 20 blocks a shard as {20 // rx.SCAN_BLOCKS} graph(s) of "
+          f"{rx.SCAN_BLOCKS} and {20 % rx.SCAN_BLOCKS} of one; {replays} "
+          "replays): torch.equal to the per-block program")
+
+    chunk_blocks = rx.SCAN_BLOCKS + 3
+    chunks = list(time_sharded_receive_chunked(
+        iq, mesh, MODE, stereo=True, with_rds=True,
+        chunk_blocks=chunk_blocks))
     got = assemble_time_chunks(chunks)
     for arm in ("fm_demod", "mono", "left", "right", "rds_symbols"):
         if not np.array_equal(got[arm], getattr(out, arm).cpu().numpy()):
             raise AssertionError(f"time-sharded chunked {arm} differs from "
                                  "the single-shot run")
-    print(f"time-sharded chunked (7-block chunks, halos sliced on the host): "
+    print(f"time-sharded chunked ({chunk_blocks}-block chunks, halos sliced "
+          f"on the host, copied into the chunk graphs' static inputs): "
           f"{len(chunks)} chunks, bit-equal to the single-shot run")
 
-    # 8 channels: the capture from 8 whole-I/Q-pair offsets, 4 blocks each,
-    # drawn from a generator of their own so that they do not move with the
-    # draws of earlier phases
+    # 8 channels: the capture from 8 whole-I/Q-pair offsets, a chunk graph
+    # and 2 blocks each, drawn from a generator of their own so that they
+    # do not move with the draws of earlier phases
+    n_ch = rx.SCAN_BLOCKS + 2
     offs = 2 * np.random.default_rng(SEED + 4).integers(
-        0, (len(iq) - 4 * block_raw) // 2, size=8)
-    chans = np.stack([iq[o:o + 4 * block_raw] for o in offs])
-    outs, _ = gather_channels(channel_sharded_run(
+        0, (len(iq) - n_ch * block_raw) // 2, size=8)
+    chans = np.stack([iq[o:o + n_ch * block_raw] for o in offs])
+    sharded_run = lambda: gather_channels(channel_sharded_run(
         chans, Mesh(["cuda:0"] * 2, ("ch",)), MODE, stereo=True,
         with_rds=True))
+    outs, st = sharded_run()
+    bad = _departs((outs, st), _per_block(sharded_run))
+    if bad:
+        raise AssertionError(f"channel-sharded: chunk graphs vs the "
+                             f"per-block program: {bad}")
     errs = {}
     for c in range(8):
         one = rx.Receiver(MODE, stereo=True, with_rds=True,
@@ -861,8 +905,9 @@ def phase_time_sharded(rng) -> dict:
     if not all(errs[a] <= ARM_ATOL[a] for a in ARM_ATOL):
         raise AssertionError(f"channel-sharded: max err {errs} (atol "
                              f"{ARM_ATOL}; offsets {offs.tolist()})")
-    print("channel-sharded: 8 channels x 4 blocks over 2 shards of cuda:0 "
-          "vs per-channel runs: max abs err "
+    print(f"channel-sharded: 8 channels x {n_ch} blocks over 2 shards of "
+          "cuda:0, torch.equal to the per-block program; vs per-channel "
+          "runs: max abs err "
           + ", ".join(f"{a} {e:.3g} (atol {ARM_ATOL[a]})"
                       for a, e in errs.items()))
 
@@ -1022,6 +1067,17 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cudaMemsetAsync")
 
 
+def _per_block(fn):
+    """``fn()`` with every block through the per-block program
+    (``receiver.SCAN_BLOCKS`` 0): what the chunk graphs are held to."""
+    k = rx.SCAN_BLOCKS
+    rx.SCAN_BLOCKS = 0
+    try:
+        return fn()
+    finally:
+        rx.SCAN_BLOCKS = k
+
+
 def _departs(got, want) -> str | None:
     """None when every leaf is torch.equal, else where the first differs."""
     for i, (a, b) in enumerate(zip(program.tree_leaves(got),
@@ -1080,6 +1136,70 @@ def check_programs(rng) -> None:
           + "; the channelizer's program, C=64 at 19.2 MS/s, 3 blocks")
 
 
+# (mode, channels, float input): the chunk graphs' kernel and layout cases
+CHUNK_CASES = {
+    "u8 C=1 (K1, K2)": (0, 1, False),
+    "u8 C=512 (K1, K3)": (0, 512, False),
+    "float C=1 (K5, K2)": (0, 1, True),
+    "mode 2 (44.1 kHz resampler)": (2, 1, False),
+    "mode 1 u8, 50,040-byte blocks (not a multiple of 16 bytes)": (1, 1,
+                                                                   False),
+}
+
+
+def check_chunks(rng) -> None:
+    """Every chunk program against the per-block program on the same
+    blocks, torch.equal on every output arm and the state: ``run_blocks``
+    over SCAN_BLOCKS + 3 blocks (one chunk graph, then a tail of 3
+    blocks) for each case of CHUNK_CASES (stereo, and RDS where the mode
+    has it), and on one ``Receiver`` a host recording as ``process()`` of
+    one block, ``run()`` of 2 * SCAN_BLOCKS + 3 (through pinned staging),
+    ``process()`` of one more.  The time-sharded and channel-sharded runs
+    are held the same way in path (d)."""
+    k = rx.SCAN_BLOCKS
+    for case, (mode, c, as_float) in CHUNK_CASES.items():
+        mc = cfg.get_mode_config(mode)
+        rds = mc.rds is not None
+        bs = mc.default_block_size(rds)
+        lead = (c,) if c > 1 else ()
+        xs = torch.from_numpy(rng.integers(0, 256, (k + 3,) + lead + (bs,),
+                                           dtype=np.uint8)).cuda()
+        if as_float:
+            xs = fir_frontend.normalize_u8(xs)
+        coeffs = rx.design_coeffs(mc, device="cuda")
+        fn = rx.make_block_fn(mc, True, rds)
+        got = rx.run_blocks(xs, coeffs, rx.init_state(mc, lead, device="cuda"),
+                            mc, True, rds, fn=fn)
+        want = _per_block(lambda: rx.run_blocks(
+            xs, coeffs, rx.init_state(mc, lead, device="cuda"), mc, True,
+            rds))
+        bad = _departs(got, want)
+        chunks = sorted(cap.blocks for cap in fn.captures)
+        if bad or chunks != [1, k]:
+            raise AssertionError(f"chunk program {case}: graphs of {chunks} "
+                                 f"blocks; vs the per-block program: {bad}")
+        del xs, got, want
+    mc = cfg.get_mode_config(MODE)
+    bs = mc.default_block_size(True)
+    n = 2 * k + 5
+    iq = rng.integers(0, 256, n * bs, dtype=np.uint8)
+    r = rx.Receiver(MODE, stereo=True, with_rds=True, device="cuda")
+    got = (r.process(iq[:bs]), r.run(iq[bs:(n - 1) * bs]),
+           r.process(iq[(n - 1) * bs:]))
+    ref = rx.Receiver(MODE, stereo=True, with_rds=True, device="cuda")
+    want = _per_block(lambda: (ref.process(iq[:bs]),
+                               ref.run(iq[bs:(n - 1) * bs]),
+                               ref.process(iq[(n - 1) * bs:])))
+    bad = _departs((got, r.state), (want, ref.state))
+    if bad:
+        raise AssertionError(f"process/run/process on one Receiver: {bad}")
+    print(f"chunk programs (graphs of {k} blocks) vs the per-block program, "
+          f"torch.equal on every output and state leaf over {k} + 3 blocks "
+          "(a chunk, then a tail): " + "; ".join(CHUNK_CASES)
+          + f"; process() -> run() of {n - 2} host blocks -> process() on "
+          "one Receiver")
+
+
 def _busy_ms(intervals: list[tuple[float, float]]) -> float:
     """Union length of (start, end) microsecond intervals, in ms."""
     total, end = 0.0, -np.inf
@@ -1118,19 +1238,25 @@ def _profiled_block(fn, reps: int) -> dict:
 
 def _cells(rng) -> dict:
     """The four cells, each as (eager block, program block, reps, the
-    programs whose captures it reports): mode-0 stereo+RDS u8 at C=1 and
-    C=512, the wideband block (channelizer and receiver) of C=64 stations
-    at 19.2 MS/s, and the time-sharded step at S=8 (8 rows of one
-    115,200-sample float block, K2 pinned as the time-sharded path pins
-    it)."""
+    programs whose captures it reports, chunk) where chunk is None or
+    (the chunk program's call, its blocks K): mode-0 stereo+RDS u8 at C=1
+    and C=512, the wideband block (channelizer and receiver) of C=64
+    stations at 19.2 MS/s (no chunk: the wideband path streams block by
+    block, as the JAX package's does), and the time-sharded step at S=8 (8
+    rows of one 115,200-sample float block, K2 pinned as the time-sharded
+    path pins it).  A chunk call runs K = ``receiver.SCAN_BLOCKS`` random
+    blocks on the card through one replay of ``Program.scan``."""
     mc = cfg.get_mode_config(MODE)
     bs = mc.default_block_size(True)
+    k = rx.SCAN_BLOCKS
     cells = {}
 
-    def receiver_cell(name, blk, reps, fused=None):
+    def receiver_cell(name, xs, reps, fused=None):
+        blk = xs[0]
         coeffs = rx.design_coeffs(mc, device="cuda")
         fn = rx.make_block_fn(mc, True, True, fused_mixer=fused)
-        st = [rx.init_state(mc, blk.shape[:-1], device="cuda")] * 2
+        fk = rx.make_block_fn(mc, True, True, fused_mixer=fused)
+        st = [rx.init_state(mc, blk.shape[:-1], device="cuda")] * 3
 
         def eager():
             st[0] = rx.process_block(blk, coeffs, st[0], mc, True, True,
@@ -1138,12 +1264,15 @@ def _cells(rng) -> dict:
 
         def graph():
             st[1] = fn(blk, coeffs, st[1])[1]
-        cells[name] = (eager, graph, reps, [fn])
 
-    for c, reps in ((1, 50), (512, 20)):
-        lead = (c,) if c > 1 else ()
-        receiver_cell(f"C={c}", torch.from_numpy(rng.integers(
-            0, 256, lead + (bs,), dtype=np.uint8)).cuda(), reps)
+        def chunk():
+            st[2] = fk.scan(xs, coeffs, st[2])[1]
+        cells[name] = (eager, graph, reps, [fn, fk], (chunk, k))
+
+    u8 = lambda lead: torch.from_numpy(rng.integers(
+        0, 256, (k,) + lead + (bs,), dtype=np.uint8)).cuda()
+    receiver_cell("C=1", u8(()), 50)
+    receiver_cell("C=512", u8((512,)), 20)
     ch = Channelizer([(k - 32) * 200e3 for k in range(64)], 2 * WIDE_FS,
                      MODE, device="cuda")
     r = rx.Receiver(MODE, stereo=True, with_rds=True, batch_shape=(64,),
@@ -1158,31 +1287,39 @@ def _cells(rng) -> dict:
                                              *ch.mixer, step, ch.decim)
         wst[1] = rx.process_block(out, r.coeffs, wst[1], mc, True, True)[1]
     cells["wideband C=64"] = (wide_eager, lambda: r.process(ch.process(wide)),
-                              10, [ch.program, r.program])
+                              10, [ch.program, r.program], None)
     block_raw = default_block_if(mc, True) * 2 * mc.rf_decim
     receiver_cell(f"time-sharded step S={SHARDS}", fir_frontend.normalize_u8(
-        torch.from_numpy(rng.integers(0, 256, (SHARDS, block_raw),
+        torch.from_numpy(rng.integers(0, 256, (k, SHARDS, block_raw),
                                       dtype=np.uint8)).cuda()), 30,
         fused=rx.fused_mixer_policy(1, 2))
     return cells
 
 
 def time_programs(smi: str, rng) -> dict:
-    """Each cell in turns, eager, program, program, eager, in this one
-    call: wall per block by CUDA events over back-to-back blocks, then
-    under ``torch.profiler`` device busy, idle share (1 - busy / wall),
-    device events and host launches per block; and each program's capture
-    (eager warm-up and capture seconds, host clock; bytes its pool
-    reserved)."""
+    """Each cell in turns, eager, program, chunk, chunk, program, eager
+    (eager, program, program, eager for the wideband cell), in this one
+    call: wall per block by CUDA events over back-to-back calls (a chunk
+    call's wall over its K blocks), then under ``torch.profiler`` device
+    busy, idle share (1 - busy / wall), device events and host launches
+    per block; and each program's capture (its blocks, eager warm-up and
+    capture seconds, host clock; bytes its pool reserved)."""
     print(f"card for the block-program timing: {smi}")
     res = {}
-    for name, (eager, graph, reps, fns) in _cells(rng).items():
+    for name, (eager, graph, reps, fns, chunk) in _cells(rng).items():
+        order = ("eager", "program", "program", "eager") if chunk is None \
+            else ("eager", "program", "chunk", "chunk", "program", "eager")
         turns = []
-        for kind in ("eager", "program", "program", "eager"):
-            fn = eager if kind == "eager" else graph
-            wall = cuda_ms(fn, reps, warmup=2)
-            prof = _profiled_block(fn, 5)
-            turns.append(dict(kind=kind, wall_ms=wall,
+        for kind in order:
+            if kind == "chunk":
+                fn, blocks = chunk
+                n = -(-2 * reps // blocks)
+            else:
+                fn, blocks, n = eager if kind == "eager" else graph, 1, reps
+            wall = cuda_ms(fn, n, warmup=2) / blocks
+            prof = {key: v / blocks for key, v in
+                    _profiled_block(fn, 2 if blocks > 1 else 5).items()}
+            turns.append(dict(kind=kind, blocks=blocks, wall_ms=wall,
                               idle_share=1.0 - prof["busy_ms"] / wall,
                               **prof))
         caps = [cap._asdict() for f in fns for cap in f.captures]
@@ -1193,11 +1330,13 @@ def time_programs(smi: str, rng) -> dict:
         print(f"block programs [{smi}] {name}: " + "; ".join(
             f"{t['kind']} wall {t['wall_ms']:.4f} ms, busy "
             f"{t['busy_ms']:.4f} ms, idle share {t['idle_share']:.3f}, "
-            f"{t['events']:.1f} device events, {t['host_launches']:.1f} "
-            f"host launches" for t in turns) + "; capture " + ", ".join(
-            f"{c['warm_up_s']:.3f} s warm-up + {c['capture_s']:.3f} s "
-            f"capture, pool {c['pool_bytes'] / 2 ** 20:.1f} MiB (live "
-            f"{c['allocated_bytes'] / 2 ** 20:.1f} MiB)" for c in caps))
+            f"{t['events']:.1f} device events, {t['host_launches']:.2f} "
+            f"host launches" for t in turns) + " (per block); capture "
+            + ", ".join(
+                f"{c['blocks']} block(s): {c['warm_up_s']:.3f} s warm-up + "
+                f"{c['capture_s']:.3f} s capture, pool "
+                f"{c['pool_bytes'] / 2 ** 20:.1f} MiB (live "
+                f"{c['allocated_bytes'] / 2 ** 20:.1f} MiB)" for c in caps))
     print("block programs json: " + json.dumps(res))
     return res
 
@@ -1497,6 +1636,7 @@ def main() -> int:
     sharded = phase_time_sharded(rng)
     phase_multi_process(main_path["capture"], sharded["capture"])
     check_programs(np.random.default_rng(SEED + 5))
+    check_chunks(np.random.default_rng(SEED + 7))
     time_programs(card(), np.random.default_rng(SEED + 6))
     timing = phase_timing(smi, k1, pll, k4, k5, k6)
     errs = {"fir_frontend_u8": k1["max_abs_err"],

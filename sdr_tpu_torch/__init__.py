@@ -68,8 +68,10 @@ def receive(iq, mode: int | Mode | ModeConfig = 0, stereo: bool = True,
     normalized float array.  Returns concatenated audio (mono always;
     left/right when ``stereo``) and decoded RDS frames/info words.  The
     capture is consumed to the last whole block multiple (a short tail is
-    processed as a final smaller block, not dropped).  TF32 is turned off
-    (see ``models.receiver.pin_fp32_matmul``).
+    processed as a final smaller block, not dropped).  The whole blocks
+    stream through ``Receiver.run``: on the card one CUDA graph per
+    ``models.receiver.SCAN_BLOCKS`` blocks, the block's graph for the rest.
+    TF32 is turned off (see ``models.receiver.pin_fp32_matmul``).
     """
     from sdr_tpu_torch.models import rds_decode
     from sdr_tpu_torch.models import receiver as rx

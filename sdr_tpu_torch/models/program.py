@@ -2,17 +2,31 @@
 
 The counterpart of the JAX package's compiled-program layer: the jitted
 ``_block_step`` behind ``make_block_fn`` (its state donated),
-``run_blocks_scan``, the channelizer's jitted ``_channelize_block`` and the
-time-sharded step (``sdr_tpu/models/receiver.py``, ``models/channelizer.py``,
-``parallel/time_shard.py``).  A :class:`Program` wraps a streaming step
-``step(x, params, state) -> (out, state)``; on a CUDA device it captures the
-step as a ``torch.cuda.CUDAGraph`` the first time it sees a shape, then
-replays it: one host launch a block where the eager step makes about 140.
+``run_blocks_scan``'s scan, the channelizer's jitted ``_channelize_block``
+and the time-sharded step and scans (``sdr_tpu/models/receiver.py``,
+``models/channelizer.py``, ``parallel/time_shard.py``).  A :class:`Program`
+wraps a streaming step ``step(x, params, state) -> (out, state)``; on a
+CUDA device it captures the step as a ``torch.cuda.CUDAGraph`` the first
+time it sees a shape, then replays it: one host launch a block where the
+eager step makes about 140.  Its scan form, :meth:`Program.scan`, captures
+K chained steps as one graph (a chunk graph): one host launch per K
+blocks.
 
 Contract, the JAX form's:
 
 * ``program(x, params, state) -> (out, state)``: the outputs and the new
   state are ``step``'s on the same inputs, bit for bit.
+* ``program.scan(xs, params, state) -> (outs, state)``: ``xs`` is (K, ...,
+  block); the outputs, stacked (K, ..., out), and the final state are those
+  of K chained calls, bit for bit.  Inside the graph step k's new state is
+  step k+1's input, and step k's outputs are copied into slot k of stacked
+  output buffers, so its intermediates are freed for step k+1 and the pool
+  grows with K by the stacked outputs only.  The final state goes into the
+  same state buffers as a call's, so calls and scans interleave on one
+  stream of blocks.  The static input holds the K blocks with the block
+  stride rounded up to 16 bytes (:func:`block_stride`), so every block's
+  view starts where the kernels' bulk copies need it; a host ``xs`` reaches
+  it through pinned staging.
 * The state is donated.  The program keeps one set of state buffers per
   state signature (leaf shapes and types); the graph writes the new state
   into them in place and the call returns them as the state.  A state that
@@ -31,7 +45,7 @@ Contract, the JAX form's:
 
 One graph per key: input shape and type, device, and the signatures of the
 params and the state (the step's static switches are fixed when the program
-is made).  Before a capture the step runs once eagerly on a side stream, on
+is made), and for a scan its K.  Before a capture the step runs once eagerly on a side stream, on
 copies of the state buffers, so that it never advances the caller's stream
 of blocks; that run builds the kernels (``kernels.build``), fills the caches
 a block reads by address (``ops.fir._maps_on``, ``ops.pll.loop_constants``,
@@ -45,17 +59,19 @@ card falls back to the eager step.
 
 The kernel wrappers count a launch when their kernel is launched; the
 capture records them, so each replay adds its graph's launches to the
-same counts (``COUNTED``).
+same counts (``COUNTED``): a chunk graph's replay adds K blocks' launches.
 
 On the CPU the bookkeeping is the same with the capture replaced by a
-direct call of ``step`` on the static buffers: keys, copy-in of params,
-input and a foreign state, donation into the state buffers and copy-out,
-so the CPU tests exercise everything but the graph.
+direct call of ``step`` on the static buffers (K chained calls for a
+scan): keys, copy-in of params, input and a foreign state, donation into
+the state buffers and copy-out, so the CPU tests exercise everything but
+the graph.
 """
 
 from __future__ import annotations
 
 import gc
+import math
 import time
 from typing import Callable, NamedTuple
 
@@ -71,8 +87,9 @@ COUNTED = (fir_frontend.fir_frontend_u8,
            pll_cuda.pll_mixer)
 
 #: what every program of the process did: eager warm-up runs, graph
-#: captures, and block runs (graph replays; direct calls on the CPU)
-counts = {"warm_ups": 0, "captures": 0, "replays": 0}
+#: captures, graph replays (direct calls on the CPU; one per call or scan)
+#: and the blocks those replays ran (K per scan)
+counts = {"warm_ups": 0, "captures": 0, "replays": 0, "blocks": 0}
 
 
 def reset_counts() -> None:
@@ -148,27 +165,79 @@ class _Slot:
 
 
 class CaptureRecord(NamedTuple):
-    """One graph's capture: its input shape and type, device, the eager
-    warm-up's and the capture's seconds (host clock around a synchronize),
-    the bytes still allocated after the capture (the graph's outputs and
-    what it keeps alive) and the bytes its memory pool reserved."""
+    """One graph's capture: its block shape and type, device, the blocks it
+    runs (K of a scan, 1 for a call), the eager warm-up's and the capture's
+    seconds (host clock around a synchronize), the bytes still allocated
+    after the capture (the graph's outputs and what it keeps alive) and the
+    bytes its memory pool reserved."""
 
     shape: tuple
     dtype: torch.dtype
     device: torch.device
+    blocks: int
     warm_up_s: float
     capture_s: float
     allocated_bytes: int
     pool_bytes: int
 
 
-class _Entry:
-    """One key's static input, graph outputs and run function."""
+def block_stride(shape: tuple, dtype: torch.dtype) -> int:
+    """Elements from one block to the next in a scan's static input: the
+    block's size rounded up to 16 bytes, so that every block's view starts
+    16-byte aligned, as a block at an allocation's base does (the bulk
+    copies of ``csrc/bulk_copy.cuh``)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return -(-math.prod(shape) * size // 16) * 16 // size
 
-    def __init__(self, x: torch.Tensor, device: torch.device):
-        self.x = torch.empty(x.shape, dtype=x.dtype, device=device)
+
+def _blocks_buffer(k: int, shape: tuple, dtype: torch.dtype,
+                   device: torch.device, pin: bool = False
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(flat storage, (k,) + shape view) of k blocks ``block_stride``
+    apart; each block's view is contiguous."""
+    stride = block_stride(shape, dtype)
+    flat = torch.empty(k * stride, dtype=dtype, device=device, pin_memory=pin)
+    inner = torch.empty(shape, dtype=dtype, device="meta").stride()
+    return flat, flat.as_strided((k,) + tuple(shape), (stride,) + inner)
+
+
+class _Entry:
+    """One key's static input, graph outputs and run function; ``blocks``
+    is K for a scan's entry (its input (K, ...) with the padded block
+    stride), None for a call's."""
+
+    def __init__(self, shape: tuple, dtype: torch.dtype,
+                 device: torch.device, blocks: int | None):
+        self.blocks = blocks
+        if blocks is None:
+            self.x = self.flat = torch.empty(shape, dtype=dtype,
+                                             device=device)
+        else:
+            self.flat, self.x = _blocks_buffer(blocks, shape, dtype, device)
+        self.staging = None     # a scan's pinned (flat, view, event)
         self.out = None
         self.run: Callable[[], None] | None = None
+
+    def load(self, x: torch.Tensor) -> None:
+        """``x`` into the static input.  A host input of a scan on the card
+        goes through pinned staging: one host copy into the padded layout,
+        one asynchronous copy to the card; the staging is refilled only
+        after its previous copy to the card has finished."""
+        if x is self.x:
+            return
+        if self.blocks is None or not self.x.is_cuda or x.is_cuda:
+            self.x.copy_(x, non_blocking=True)
+            return
+        if self.staging is None:
+            flat, view = _blocks_buffer(self.blocks, self.x.shape[1:],
+                                        self.x.dtype, "cpu", pin=True)
+            self.staging = (flat, view, torch.cuda.Event())
+        else:
+            self.staging[2].synchronize()
+        flat, view, done = self.staging
+        view.copy_(x)
+        self.flat.copy_(flat, non_blocking=True)
+        done.record(torch.cuda.current_stream(self.x.device))
 
 
 class Program:
@@ -191,17 +260,28 @@ class Program:
         return list(self._entries)
 
     def __call__(self, x: torch.Tensor, params, state):
+        return self._run(x, params, state, None)
+
+    def scan(self, xs: torch.Tensor, params, state):
+        """K = ``xs.shape[0]`` chained blocks as one graph (see the module
+        docstring): outputs stacked (K, ..., out) and the state."""
+        return self._run(xs, params, state, xs.shape[0])
+
+    def _run(self, x: torch.Tensor, params, state, blocks: int | None):
         p_leaves, s_leaves = tree_leaves(params), tree_leaves(state)
         dev = p_leaves[0].device
-        key = (tuple(x.shape), x.dtype, dev, _signature(p_leaves),
+        shape = tuple(x.shape) if blocks is None else tuple(x.shape[1:])
+        key = (shape, x.dtype, dev, _signature(p_leaves),
                _signature(s_leaves), self.switches)
+        if blocks is not None:
+            key += (blocks,)
         params_slot = self._params_in(dev, params, p_leaves)
         state_slot = self._slot(self._states, dev, state, s_leaves)
         copy_leaves(state_slot.bufs, s_leaves)
         entry = self._entries.get(key)
         if entry is None:
-            entry = self._entries[key] = _Entry(x, dev)
-            entry.x.copy_(x, non_blocking=True)
+            entry = self._entries[key] = _Entry(shape, x.dtype, dev, blocks)
+            entry.load(x)
             try:
                 entry.run = self._capture(entry, params_slot, state_slot)
                 entry.run()
@@ -209,10 +289,10 @@ class Program:
                 del self._entries[key]
                 raise
         else:
-            if x is not entry.x:
-                entry.x.copy_(x, non_blocking=True)
+            entry.load(x)
             entry.run()
         counts["replays"] += 1
+        counts["blocks"] += blocks or 1
         return copy_out(entry.out), state_slot.tree
 
     @staticmethod
@@ -240,10 +320,32 @@ class Program:
         copy_leaves(state.bufs, tree_leaves(new))
         entry.out = out
 
+    def _scan_body(self, entry: _Entry, params: _Slot, state: _Slot
+                   ) -> None:
+        """K chained steps on the static buffers: step k's outputs copied
+        into slot k of the stacked outputs (made at the first step), its
+        new state handed to step k+1, the last one donated into the state
+        buffers."""
+        st = state.tree
+        for k in range(entry.blocks):
+            out, st = self.step(entry.x[k], params.tree, st)
+            if entry.out is None:
+                entry.out = tree_map(
+                    lambda t: t.new_empty((entry.blocks,) + tuple(t.shape)),
+                    out)
+            copy_leaves([o[k] for o in tree_leaves(entry.out)],
+                        tree_leaves(out))
+            del out
+        copy_leaves(state.bufs, tree_leaves(st))
+
     def _direct(self, entry: _Entry, params: _Slot, state: _Slot) -> None:
         """The CPU's replay: :meth:`_body`, its outputs then copied into
         the entry's fixed output buffers, which every call overwrites as a
-        graph's replay overwrites its outputs."""
+        graph's replay overwrites its outputs (a scan's stacked outputs are
+        such buffers already)."""
+        if entry.blocks is not None:
+            self._scan_body(entry, params, state)
+            return
         fixed = entry.out
         self._body(entry, params, state)
         if fixed is None:
@@ -253,9 +355,9 @@ class Program:
 
     def _capture(self, entry: _Entry, params: _Slot,
                  state: _Slot) -> Callable[[], None]:
-        """The function that runs ``entry``'s block: on the CPU a direct
-        call of the step, on the card the replay of a graph captured
-        here."""
+        """The function that runs ``entry``'s block (its K blocks): on the
+        CPU direct calls of the step, on the card the replay of a graph
+        captured here."""
         dev = entry.x.device
         if dev.type != "cuda":
             return lambda: self._direct(entry, params, state)
@@ -264,11 +366,13 @@ class Program:
             side = self._streams[dev] = torch.cuda.Stream(dev)
         with torch.cuda.device(dev):
             t0 = time.perf_counter()
-            # warm-up: eager, on the side stream, on copies of the state
+            # warm-up: eager, one block, on the side stream, on copies of
+            # the state
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 warm = tree_build(state.tree, [b.clone() for b in state.bufs])
-                self.step(entry.x, params.tree, warm)
+                self.step(entry.x if entry.blocks is None else entry.x[0],
+                          params.tree, warm)
                 del warm
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
@@ -289,8 +393,10 @@ class Program:
             was_enabled = gc.isenabled()
             gc.disable()
             try:
+                body = (self._body if entry.blocks is None
+                        else self._scan_body)
                 with torch.cuda.graph(graph, pool=pool, stream=side):
-                    self._body(entry, params, state)
+                    body(entry, params, state)
             finally:
                 if was_enabled:
                     gc.enable()
@@ -302,7 +408,8 @@ class Program:
             torch.cuda.synchronize(dev)
             counts["captures"] += 1
             self.captures.append(CaptureRecord(
-                tuple(entry.x.shape), entry.x.dtype, dev, t1 - t0,
+                tuple(entry.x.shape[entry.blocks is not None:]),
+                entry.x.dtype, dev, entry.blocks or 1, t1 - t0,
                 time.perf_counter() - t1,
                 torch.cuda.memory_allocated(dev) - alloc0,
                 torch.cuda.memory_reserved(dev) - res0))

@@ -11,9 +11,11 @@ eager, pure function, as the un-jitted JAX one does.  The entry points run
 it as a block program (:func:`make_block_fn`, ``models.program``): on the
 card a CUDA graph of the block, captured once per shape and replayed once
 per block, with the state donated, the counterpart of the JAX package's
-jitted ``_block_step``.  Streaming over a recording replays it block by
-block (:func:`run_blocks`, :class:`Receiver`).  The symbol-rate RDS decode
-runs on the host (``sdr_tpu_torch.models.rds_decode``).
+jitted ``_block_step``.  Streaming over a recording (:func:`run_blocks`,
+:class:`Receiver`) replays a graph of :data:`SCAN_BLOCKS` chained blocks
+(``Program.scan``), the counterpart of ``run_blocks_scan``'s scan, and the
+per-block graph for the remaining blocks.  The symbol-rate RDS decode runs
+on the host (``sdr_tpu_torch.models.rds_decode``).
 
 Kernels: the RF front-end is kernel K1 (``ops.fir_frontend``) on raw u8
 input and K5 (``ops.fir_decim``) on float input, as the channelizer feeds
@@ -458,29 +460,64 @@ def make_block_fn(mc: cfg.ModeConfig, stereo: bool = True,
                                   fused_mixer))
 
 
+#: blocks in one chunk graph of :func:`run_blocks` and the time-sharded
+#: runners (``Program.scan``), chosen on the card (PERF.md section 5).  0
+#: runs every block through the per-block program, the yardstick the chunk
+#: graphs are held against.
+SCAN_BLOCKS = 16
+
+
+def block_spans(n_blocks: int) -> list[slice]:
+    """How :func:`run_blocks` cuts ``n_blocks``: whole chunks of
+    :data:`SCAN_BLOCKS` blocks, then the remaining n mod K one by one."""
+    k = SCAN_BLOCKS or 1
+    whole = n_blocks - n_blocks % k
+    return [slice(b, b + k) for b in range(0, whole, k)] \
+        + [slice(b, b + 1) for b in range(whole, n_blocks)]
+
+
+def run_span(fn: program.Program, xs: torch.Tensor, coeffs, state
+             ) -> tuple[BlockOutputs, ReceiverState]:
+    """Blocks ``xs`` (m, ..., block_len) through ``fn``: one replay of its
+    m-block chunk graph (``Program.scan``), or, for one block or with
+    :data:`SCAN_BLOCKS` 0, one replay of the per-block graph a block.
+    ``xs`` may lie on the host; the program copies it into its static
+    input.  Returns the outputs stacked (m, ..., out_len) and the state."""
+    if len(xs) > 1 and SCAN_BLOCKS:
+        return fn.scan(xs, coeffs, state)
+    outs = []
+    for x in xs:
+        out, state = fn(x, coeffs, state)
+        outs.append(out)
+    return map_state(lambda *arm: torch.stack(arm), *outs), state
+
+
 def run_blocks(iq_blocks: torch.Tensor, coeffs: ReceiverCoeffs,
                state: ReceiverState, mc: cfg.ModeConfig, stereo: bool = True,
                with_rds: bool = False, fused_mixer: bool | None = None,
                fn: program.Program | None = None
                ) -> tuple[BlockOutputs, ReceiverState]:
-    """Stream blocks through a block program, one replay per block: the
-    counterpart of the JAX package's ``run_blocks_scan``, whose scan
-    compiles the whole recording into one program (a graph of a whole
-    chunk of blocks is not built here).
+    """Stream blocks through a block program: the counterpart of the JAX
+    package's ``run_blocks_scan``.  Its scan becomes one replay of a graph
+    of :data:`SCAN_BLOCKS` chained blocks per whole chunk, and the n mod K
+    blocks left over replay the per-block graph of the same program; both
+    give the chained blocks' outputs and state bit for bit.
 
     ``iq_blocks`` is (n_blocks, ..., block_len): the block axis first, then
-    optional channel-batch dims.  Returns the outputs stacked
-    (n_blocks, ..., out_len) and the final state, which is ``fn``'s state
-    buffers.  ``fn`` is the program to replay (default: a new
-    :func:`make_block_fn` for this call); ``fused_mixer`` pins the PLL
+    optional channel-batch dims; on the program's device or on the host
+    (each chunk is copied into the graph's static input, through pinned
+    staging from the host).  Returns the outputs stacked (n_blocks, ...,
+    out_len) on the program's device and the final state, which is
+    ``fn``'s state buffers.  ``fn`` is the program to replay (default: a
+    new :func:`make_block_fn` for this call); ``fused_mixer`` pins the PLL
     kernel of that default (None: ``process_block``'s shape policy)."""
     if fn is None:
         fn = make_block_fn(mc, stereo, with_rds, fused_mixer=fused_mixer)
-    outs = []
-    for b in range(iq_blocks.shape[0]):
-        out, state = fn(iq_blocks[b], coeffs, state)
-        outs.append(out)
-    return map_state(lambda *arm: torch.stack(arm), *outs), state
+    parts = []
+    for span in block_spans(iq_blocks.shape[0]):
+        out, state = run_span(fn, iq_blocks[span], coeffs, state)
+        parts.append(out)
+    return map_state(lambda *arm: torch.cat(arm), *parts), state
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -499,7 +536,10 @@ class Receiver:
 
     ``process(iq)`` consumes one block; ``run(iq)`` a whole recording.  Both
     replay the receiver's block program (``self.program``,
-    :func:`make_block_fn`): on the card a CUDA graph per block shape.  The
+    :func:`make_block_fn`): on the card ``process`` a CUDA graph of the
+    block, ``run`` and ``iter_run`` a graph of :data:`SCAN_BLOCKS` blocks
+    per whole chunk and the block's graph for the rest
+    (:func:`run_blocks`).  The three interleave on one stream of blocks.  The
     state is exposed for checkpoint/resume (``sdr_tpu_torch.convert``): it
     is the program's state buffers, which the next block overwrites in
     place, so read or clone it between blocks; a state assigned to it (a
@@ -544,20 +584,23 @@ class Receiver:
 
     def _run_blocks(self, iq: torch.Tensor, n_blocks: int,
                     block_size: int) -> BlockOutputs:
-        # one copy into block-major layout, so every block is contiguous
+        # the block-major view; run_blocks copies each chunk of it straight
+        # into the program's static input, from the host or the device
         blocks = iq[..., : n_blocks * block_size].reshape(
             iq.shape[:-1] + (n_blocks, block_size)).movedim(-2, 0)
-        outs, self.state = run_blocks(blocks.contiguous(), self.coeffs,
-                                      self.state, self.mc, self.stereo,
-                                      self.with_rds, fn=self.program)
+        outs, self.state = run_blocks(blocks, self.coeffs, self.state,
+                                      self.mc, self.stereo, self.with_rds,
+                                      fn=self.program)
         return outs
 
     def run(self, iq, block_size: Optional[int] = None) -> BlockOutputs:
-        """Stream a whole recording block by block; returns the per-block
-        outputs stacked on a new leading block axis."""
+        """Stream a whole recording, a chunk graph per ``SCAN_BLOCKS``
+        blocks (:func:`run_blocks`); returns the per-block outputs stacked
+        on a new leading block axis, on this receiver's device.  A host recording stays on the host: each chunk is copied
+        into the program's static input."""
         if block_size is None:
             block_size = self.mc.default_block_size(self.with_rds)
-        iq = self._as_input(iq)
+        iq = self._as_input(iq, False)
         n_blocks = iq.shape[-1] // block_size
         if n_blocks == 0:
             raise ValueError(f"capture of {iq.shape[-1]} samples is shorter "
@@ -569,10 +612,11 @@ class Receiver:
         """Stream a long recording in chunks of ``chunk_blocks`` blocks.
 
         Device and host memory stay O(chunk) however long the capture: each
-        chunk is converted and copied to the device on its own, and its
-        outputs come back as host numpy arrays (``BlockOutputs`` stacked
-        (blocks, ..., out_len)).  The state carries across chunks, so the
-        chunks concatenate bit-identically to one :meth:`run`."""
+        chunk is converted on the host and copied straight into the chunk
+        graph's static input (through pinned staging), and its outputs come
+        back as host numpy arrays (``BlockOutputs`` stacked (blocks, ...,
+        out_len)).  The state carries across chunks, so the chunks
+        concatenate bit-identically to one :meth:`run`."""
         if block_size is None:
             block_size = self.mc.default_block_size(self.with_rds)
         if isinstance(iq, torch.Tensor):
@@ -580,6 +624,7 @@ class Receiver:
         n_blocks = iq.shape[-1] // block_size
         for k0 in range(0, n_blocks, chunk_blocks):
             k1 = min(k0 + chunk_blocks, n_blocks)
-            chunk = self._as_input(iq[..., k0 * block_size: k1 * block_size])
+            chunk = self._as_input(iq[..., k0 * block_size: k1 * block_size],
+                                   False)
             outs = self._run_blocks(chunk, k1 - k0, block_size)
             yield map_state(lambda a: a.cpu().numpy(), outs)

@@ -3,8 +3,9 @@
 Port of ``sdr_tpu/parallel/channel.py``.  Every op of the receiver takes
 leading batch dims, so C channels over D devices is a split of the batch
 with nothing exchanged on the hot path.  Each device streams its share of
-the channels through ``run_blocks``, one block program (a CUDA graph of the
-block on the card) per device; the outputs stay on their devices, as
+the channels through ``run_blocks``, one block program per device (on the
+card a CUDA graph of ``SCAN_BLOCKS`` chained blocks per whole chunk, the
+block's graph for the rest); the outputs stay on their devices, as
 the JAX package's stay sharded, until :func:`gather_channels` collects
 them.  Mesh shards that share a device run as one batch there.  On a mesh
 that spans processes each process passes its own channels and runs its own

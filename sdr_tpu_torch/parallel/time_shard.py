@@ -184,11 +184,23 @@ def _reset_first(state: rx.ReceiverState, fresh: rx.ReceiverState,
                                  f, w), fresh, state)
 
 
+def _block_major(x: torch.Tensor, n_blocks: int, block: int
+                 ) -> torch.Tensor:
+    """The (n_blocks, rows, block) view of a (rows, >= n_blocks*block)
+    buffer's first blocks.  Its one copy into (K, rows, block) layout per
+    chunk is the chunk graph's input copy (``Program.scan``)."""
+    return x[:, :n_blocks * block].reshape(
+        x.shape[0], n_blocks, block).movedim(1, 0)
+
+
 class _Runner:
     """Per device: coefficients, state, and one block program
     (``models.receiver.make_block_fn``) over the device's batch rows: the
-    counterpart of the JAX package's jitted time-sharded step.  K6 and the
-    edge exchange run outside the programs, once per call."""
+    counterpart of the JAX package's jitted time-sharded step and of its
+    two scans, the warm-up and the body (``_scan_blocks`` in the chunked
+    form).  Each scan is a chunk graph (``Program.scan``,
+    ``receiver.run_span``).  K6 and the edge exchange run outside the
+    programs, once per call."""
 
     def __init__(self, sh: _Shards, mc: cfg.ModeConfig, stereo: bool,
                  with_rds: bool):
@@ -205,38 +217,42 @@ class _Runner:
                              device=g.device)
 
     def step(self, blocks: list[torch.Tensor]) -> list[rx.BlockOutputs]:
-        """One block on every device: one replay each, launched device
-        after device without waiting, so several cards run at once."""
+        """Blocks (m, rows, block_raw) on every device: one replay each
+        (``receiver.run_span``), launched device after device without
+        waiting, so several cards run at once; outputs stacked (m, rows,
+        out)."""
         outs = []
         for g, blk in enumerate(blocks):
-            out, self.states[g] = self.fns[g](blk, self.coeffs[g],
-                                              self.states[g])
+            out, self.states[g] = rx.run_span(self.fns[g], blk,
+                                              self.coeffs[g], self.states[g])
             outs.append(out)
         return outs
 
     def warm_up(self, halos: list[torch.Tensor]) -> None:
-        """Run the halo blocks (outputs discarded), then reset shard 0 to a
-        fresh state made anew, not one kept from before the warm-up: a
-        state the programs returned is their own buffers, which every step
-        overwrites in place (the state is donated)."""
-        br = self.sh.block_raw
-        for b in range(self.sh.n_skip):
-            self.step([h[:, b * br:(b + 1) * br] for h in halos])
+        """Run the halo blocks as one graph of the ``n_skip`` blocks a
+        device (outputs discarded), then reset shard 0 to a fresh state
+        made anew, not one kept from before the warm-up: a state the
+        programs returned is their own buffers, which every step overwrites
+        in place (the state is donated)."""
+        self.step([_block_major(h, self.sh.n_skip, self.sh.block_raw)
+                   for h in halos])
         self.states = [_reset_first(st, self.fresh(g), self.sh.first_rows(g))
                        for st, g in zip(self.states, self.sh.groups)]
 
     def run(self, xs: list[torch.Tensor], n_blocks: int
             ) -> list[dict[str, torch.Tensor]]:
         """``n_blocks`` blocks of every device's (rows, n_blocks*block_raw)
-        input; returns per device arm -> (rows, n_blocks*out_per_block)."""
-        br = self.sh.block_raw
+        input, on the device or the host, in chunks of
+        ``receiver.SCAN_BLOCKS`` (``receiver.block_spans``); returns per
+        device arm -> (rows, n_blocks*out_per_block)."""
+        blocks = [_block_major(x, n_blocks, self.sh.block_raw) for x in xs]
         per_dev = [[] for _ in xs]
-        for b in range(n_blocks):
-            for g, out in enumerate(self.step([x[:, b * br:(b + 1) * br]
-                                               for x in xs])):
+        for span in rx.block_spans(n_blocks):
+            for g, out in enumerate(self.step([b[span] for b in blocks])):
                 per_dev[g].append(out)
-        return [{a: torch.cat([getattr(o, a) for o in outs], dim=-1)
-                 for a in self.sh.arms} for outs in per_dev]
+        return [{a: torch.cat([getattr(o, a) for o in outs]).movedim(0, 1)
+                 .reshape(len(x), -1) for a in self.sh.arms}
+                for outs, x in zip(per_dev, xs)]
 
 
 def _prepare(iq, mesh: Mesh, mode, stereo: bool, with_rds: bool,
@@ -319,8 +335,9 @@ def time_sharded_receive(iq: np.ndarray, mesh: Mesh,
     PLL) is rounded up to whole blocks.  Each device holds one extended
     buffer [halo | segment] per shard; K6 fills the halos inside the
     process, :func:`exchange_edges` those across its edge, the warm-up
-    runs over them and is discarded, and every block streams through
-    the device's block program over its rows.  Returns this process's
+    runs over them (one graph of the halo blocks a device) and is
+    discarded, and the blocks stream through the device's block program
+    over its rows, a chunk graph per ``receiver.SCAN_BLOCKS`` blocks.  Returns this process's
     outputs laid out exactly like a contiguous run of its part ((n_out,),
     or (C_p, n_out)) on its first device; disabled arms are empty."""
     mc, with_rds, sh, segs = _prepare(iq, mesh, mode, stereo, with_rds,
@@ -420,14 +437,17 @@ def time_sharded_receive_chunked(iq: np.ndarray, mesh: Mesh,
 def _chunks(mc: cfg.ModeConfig, stereo: bool, with_rds: bool, sh: _Shards,
             segs: np.ndarray, chunk_blocks: int
             ) -> Iterator[dict[str, np.ndarray]]:
-    put = lambda a, grp: torch.from_numpy(a).to(grp.device)
+    # the halos and rows stay on the host: the programs copy each chunk of
+    # blocks into their static inputs (through pinned staging)
     runner = _Runner(sh, mc, stereo, with_rds)
-    runner.warm_up([put(sh.halos(g.cells, segs), g) for g in sh.groups])
+    runner.warm_up([torch.from_numpy(sh.halos(g.cells, segs))
+                    for g in sh.groups])
     c = sh.c_local
     for k0 in range(0, sh.blocks_per_seg, chunk_blocks):
         k1 = min(k0 + chunk_blocks, sh.blocks_per_seg)
-        xs = [put(sh.rows(g.cells, segs, k0 * sh.block_raw,
-                          k1 * sh.block_raw), g) for g in sh.groups]
+        xs = [torch.from_numpy(sh.rows(g.cells, segs, k0 * sh.block_raw,
+                                       k1 * sh.block_raw))
+              for g in sh.groups]
         outs = [{a: v.cpu().numpy() for a, v in o.items()}
                 for o in runner.run(xs, k1 - k0)]
         chunk = {}

@@ -40,7 +40,13 @@ time-sharded step) replay bit-equal (torch.equal) to the eager block over
 8 chained blocks, every output arm and state leaf, for each kernel and
 arm combination of the paths; ``receive()``'s tail block, a checkpoint
 resumed after 5 program blocks, and a capture made to fail (it raises,
-nothing runs eagerly instead).
+nothing runs eagerly instead).  The chunk programs (one graph of
+``SCAN_BLOCKS`` chained blocks) equal the per-block program, torch.equal:
+u8 at C=1 and C=512, float, mode 2, blocks whose byte length is not a
+multiple of 16, a chunk followed by a tail, a host recording through
+pinned staging with ``process``/``run``/``process`` interleaved and
+``iter_run``, a checkpoint restart between two runs, the time-sharded S=8 run with its warm-up graph (single-shot
+and chunked); a chunk capture made to fail raises.
 """
 
 import json
@@ -806,3 +812,158 @@ def test_failed_capture_raises(dev, monkeypatch, fault):
     want, _ = prx.process_block(blk, coeffs, prx.init_state(mc, device=dev),
                                 mc, True, True)
     _assert_trees_equal(out, want, "after a failed capture")
+
+
+# --- chunk programs: one CUDA graph of SCAN_BLOCKS chained blocks -----------
+
+# (mode, channels, with_rds, float input, block bytes or None for the
+# mode's default): the chunk graph's kernel and layout combinations
+CHUNK_CASES = {
+    "u8 C=1": (0, 1, True, False, None),                    # K1, K2
+    "u8 C=512": (0, 512, True, False, None),                # K1, K3
+    "float C=1": (0, 1, True, True, None),                  # K5, K2
+    "mode 2": (2, 1, True, False, None),
+    "u8 block not a multiple of 16 bytes": (1, 1, False, False, None),
+    # a custom mode (rf 1.2 MS/s, IF 240 kS/s, audio 48 kS/s: blocks of 50
+    # samples' multiples) with float blocks of 40,200 bytes
+    "float custom-mode block not a multiple of 16 bytes": (
+        cfg.custom_mode(1.2e6, 240e3, 48e3), 1, False, True, 10_050),
+}
+
+
+def _chunk_case(dev, case, n_blocks):
+    mode, c, rds, as_float, bs = CHUNK_CASES[case]
+    mc = mode if isinstance(mode, cfg.ModeConfig) else \
+        cfg.get_mode_config(mode)
+    rds = rds and mc.rds is not None
+    bs = bs or mc.default_block_size(rds)
+    lead = (c,) if c > 1 else ()
+    rng = np.random.default_rng(41)
+    iq = torch.from_numpy(rng.integers(0, 256, (n_blocks,) + lead + (bs,),
+                                       dtype=np.uint8)).to(dev)
+    if as_float:
+        iq = fir_frontend.normalize_u8(iq)
+    return mc, rds, lead, iq
+
+
+@pytest.mark.parametrize("case", list(CHUNK_CASES))
+def test_chunk_program_equals_per_block(dev, case):
+    """SCAN_BLOCKS + 3 chained blocks through ``run_blocks`` (one chunk
+    graph replayed once, then three replays of the block's graph) against
+    the per-block program on the same blocks: every output arm and the
+    state torch.equal.  The chunk replay adds SCAN_BLOCKS blocks'
+    launches; the static input's block views are 16-byte aligned."""
+    k = prx.SCAN_BLOCKS
+    mc, rds, lead, iq = _chunk_case(dev, case, k + 3)
+    coeffs = prx.design_coeffs(mc, device=dev)
+    one = prx.make_block_fn(mc, True, rds)
+    st, outs = prx.init_state(mc, lead, device=dev), []
+    for blk in iq:
+        out, st = one(blk, coeffs, st)
+        outs.append(out)
+    want = prx.map_state(lambda *a: torch.stack(a), *outs)
+    fn = prx.make_block_fn(mc, True, rds)
+    pprog.reset_counts()
+    before = [f.launches for f in pprog.COUNTED]
+    got, own = prx.run_blocks(iq, coeffs, prx.init_state(mc, lead,
+                                                         device=dev),
+                              mc, True, rds, fn=fn)
+    torch.cuda.synchronize()
+    _assert_trees_equal(got, want, f"{case} outputs")
+    _assert_trees_equal(own, st, f"{case} state")
+    assert pprog.counts == {"warm_ups": 2, "captures": 2, "replays": 4,
+                            "blocks": k + 3}
+    assert sorted(r.blocks for r in fn.captures) == [1, k]
+    # per block run: the chunk's k blocks, 3 tail blocks, 2 warm-ups
+    added = [f.launches - n for f, n in zip(pprog.COUNTED, before)]
+    assert any(added) and all(a % (k + 5) == 0 for a in added), added
+    (entry,) = [e for e in fn._entries.values() if e.blocks]
+    assert all(entry.x[b].data_ptr() % 16 == 0 for b in range(k))
+
+
+def test_chunk_program_from_host_through_pinned_staging(dev):
+    """``Receiver.run`` and ``iter_run`` on a host recording (copied into
+    the chunk graph's static input through pinned staging), and
+    ``process``/``run``/``process`` interleaved on one receiver: equal to
+    the per-block program block by block."""
+    k = prx.SCAN_BLOCKS
+    bs = MC.default_block_size(True)
+    iq = np.random.default_rng(42).integers(0, 256, (2 * k + 5) * bs,
+                                            dtype=np.uint8)
+    ref = prx.Receiver(0, True, True, device=dev)
+    want = [ref.process(iq[b * bs:(b + 1) * bs]) for b in range(2 * k + 5)]
+    stack = lambda outs: prx.map_state(lambda *a: torch.stack(a), *outs)
+    r = prx.Receiver(0, True, True, device=dev)
+    _assert_trees_equal(r.process(iq[:bs]), want[0], "process")
+    mid = r.run(iq[bs:(2 * k + 4) * bs])
+    _assert_trees_equal(mid, stack(want[1:2 * k + 4]), "run")
+    _assert_trees_equal(r.process(iq[(2 * k + 4) * bs:]), want[-1],
+                        "process after run")
+    _assert_trees_equal(r.state, ref.state, "state")
+    it = prx.Receiver(0, True, True, device=dev)
+    chunks = list(it.iter_run(iq, chunk_blocks=k + 2))
+    for arm in ("mono", "left", "rds_symbols"):
+        np.testing.assert_array_equal(
+            np.concatenate([getattr(c, arm) for c in chunks]),
+            getattr(stack(want), arm).cpu().numpy(), err_msg=arm)
+
+
+def test_chunk_checkpoint_restart_mid_recording(dev, tmp_path):
+    """``run`` of SCAN_BLOCKS + 2 blocks (a chunk graph, 2 block replays),
+    a checkpoint of the state, a new ``Receiver`` loading it and running
+    SCAN_BLOCKS + 3 more: torch.equal to one uninterrupted ``run``."""
+    k = prx.SCAN_BLOCKS
+    bs = MC.default_block_size(True)
+    iq = np.random.default_rng(44).integers(0, 256, (2 * k + 5) * bs,
+                                            dtype=np.uint8)
+    whole = prx.Receiver(0, True, True, device=dev)
+    want = whole.run(iq)
+    a = prx.Receiver(0, True, True, device=dev)
+    head = a.run(iq[:(k + 2) * bs])
+    path = pckpt.save(str(tmp_path / "ck"), a.state, 0, block_count=k + 2,
+                      input_dtype="uint8")
+    b = prx.Receiver(0, True, True, device=dev)
+    b.state, _ = pckpt.load(path, expect_input_dtype="uint8", device=dev)
+    tail = b.run(iq[(k + 2) * bs:])
+    _assert_trees_equal(prx.map_state(lambda x, y: torch.cat([x, y]), head,
+                                      tail), want, "resumed run")
+    _assert_trees_equal(b.state, whole.state, "resumed state")
+
+
+def test_time_sharded_chunk_graphs_equal_per_block(dev, monkeypatch):
+    """S=8 shards on one card, 2 warm-up blocks (one graph) and 20 blocks
+    a shard (a chunk graph per SCAN_BLOCKS, a tail), the single-shot and
+    the chunked forms: torch.equal to the per-block program."""
+    bs = 960 * 2 * MC.rf_decim
+    iq = synth.u8_to_float(synth.synthesize_fm(
+        duration_s=0.8, mode=0, with_stereo=True, with_rds=True,
+        seed=21).iq_u8)[: 8 * 20 * bs]
+    kw = dict(stereo=True, with_rds=True, overlap_if=1920, block_if=960)
+    mesh = Mesh([dev] * 8, ("time",))
+    got = pts.time_sharded_receive(iq, mesh, 0, **kw)
+    chunked = pts.assemble_time_chunks(list(pts.time_sharded_receive_chunked(
+        iq, mesh, 0, chunk_blocks=prx.SCAN_BLOCKS + 2, **kw)))
+    monkeypatch.setattr(prx, "SCAN_BLOCKS", 0)
+    want = pts.time_sharded_receive(iq, mesh, 0, **kw)
+    _assert_trees_equal(got, want, "time-sharded")
+    for f in ("fm_demod", "mono", "left", "right", "rds_symbols"):
+        np.testing.assert_array_equal(chunked[f],
+                                      getattr(want, f).cpu().numpy())
+
+
+def test_failed_chunk_capture_raises(dev, monkeypatch):
+    """A chunk graph whose block reads a result back cannot be captured:
+    the scan raises and keeps no graph, nothing runs eagerly instead."""
+    monkeypatch.setattr(prx.tdemod, "fm_demod_quad",
+                        _reading_demod(prx.tdemod.fm_demod_quad))
+    bs = MC.default_block_size(True)
+    xs = torch.from_numpy(np.random.default_rng(43).integers(
+        0, 256, (4, bs), dtype=np.uint8)).to(dev)
+    fn = prx.make_block_fn(MC, True, True)
+    pprog.reset_counts()
+    with pytest.raises(RuntimeError):
+        fn.scan(xs, prx.design_coeffs(MC, device=dev),
+                prx.init_state(MC, device=dev))
+    assert not fn.keys() and not fn.captures
+    assert pprog.counts["replays"] == 0 and pprog.counts["blocks"] == 0
+    torch.cuda.synchronize()

@@ -5,7 +5,7 @@
   machine with the GPU has no JAX, and the port keeps its own copies.
   Checked in a fresh interpreter whose import system refuses both, and by
   scanning the imports of the port, ``chip_smoke.py``, the card-only
-  tests and the multi-process script they drive.
+  tests and the port's scripts (``scripts/torch_*.py``).
 * A kernel wrapper handed a CUDA tensor launches its kernel or raises: no
   kernel module catches an exception and falls back to the plain version,
   and a block program whose capture fails re-raises instead of running the
@@ -68,7 +68,9 @@ print("ok")
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
     + ["chip_smoke.py", "tests/test_torch_cuda.py",
-       "tests/torch_multiprocess.py", "scripts/torch_multihost_scaling.py"])
+       "tests/torch_multiprocess.py"]
+    + sorted(str(p.relative_to(ROOT))
+             for p in (ROOT / "scripts").glob("torch_*.py")))
 def test_no_forbidden_import(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):

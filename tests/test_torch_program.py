@@ -342,3 +342,179 @@ def test_time_sharded_warm_up_resets_shard0_exactly(station):
         _, own = runner.fns[0](halos[0][:, :block_raw], runner.coeffs[0],
                                runner.states[0])
         runner.states = [own]
+
+
+# --- the scan form: K chained blocks as one program (a chunk graph) --------
+
+
+def _stack(outs):
+    return prx.map_state(lambda *a: torch.stack(a), *outs)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_scan_equals_chained_calls(station, case):
+    """``Program.scan`` over K=3 blocks against three calls of the
+    per-block program on the same blocks: stacked outputs and the final
+    state bit-equal, and the state is the same buffers a call returns."""
+    mode, size, stereo, rds, debug_q, as_float = CASES[case]
+    mc = pcfg.get_mode_config(mode)
+    iq = station if mode == 0 else synth.synthesize_fm(
+        duration_s=0.05, mode=mode, with_stereo=True, seed=5).iq_u8
+    blocks = torch.stack(_blocks(iq, 3, size))
+    if as_float:
+        blocks = torch.from_numpy(synth.u8_to_float(blocks.numpy()))
+    coeffs = prx.design_coeffs(mc)
+    one = prx.make_block_fn(mc, stereo, rds, rds_debug_q=debug_q)
+    st = prx.init_state(mc)
+    outs = []
+    for blk in blocks:
+        out, st = one(blk, coeffs, st)
+        outs.append(out)
+    fn = prx.make_block_fn(mc, stereo, rds, rds_debug_q=debug_q)
+    got, own = fn.scan(blocks, coeffs, prx.init_state(mc))
+    _assert_equal_trees(got, _stack(outs))
+    _assert_equal_trees(own, st)
+    _, again = fn(blocks[0], coeffs, own)
+    assert all(a is b for a, b in zip(pprog.tree_leaves(own),
+                                      pprog.tree_leaves(again)))
+
+
+def test_scan_and_calls_interleave(station):
+    """call, scan, call, scan on one stream of blocks, from one program,
+    against the blocks one by one; the scan's outputs survive the next
+    scan."""
+    coeffs = prx.design_coeffs(PMC)
+    blocks = torch.stack(_blocks(station, 8))
+    ref = prx.make_block_fn(PMC, True, True)
+    st = prx.init_state(PMC)
+    want = []
+    for blk in blocks:
+        out, st = ref(blk, coeffs, st)
+        want.append(out)
+    fn = prx.make_block_fn(PMC, True, True)
+    got, s = [], prx.init_state(PMC)
+    for lo, hi in ((0, 1), (1, 4), (4, 5), (5, 8)):
+        if hi - lo == 1:
+            out, s = fn(blocks[lo], coeffs, s)
+            out = prx.map_state(lambda a: a[None], out)
+        else:
+            out, s = fn.scan(blocks[lo:hi], coeffs, s)
+        got.append(out)
+    _assert_equal_trees(prx.map_state(lambda *a: torch.cat(a), *got),
+                        _stack(want))
+    _assert_equal_trees(s, st)
+    assert len(fn.keys()) == 2
+
+
+@pytest.mark.parametrize("source", ["init_state", "checkpoint"])
+def test_scan_copies_a_foreign_state_in(station, tmp_path, source):
+    """A scan from a state that is not the program's buffers (a fresh one,
+    a checkpoint saved after two blocks) copies it in, leaves it as it
+    was, and resumes bit-identically."""
+    coeffs = prx.design_coeffs(PMC)
+    blocks = torch.stack(_blocks(station, 5))
+    ref = prx.make_block_fn(PMC, True, True)
+    st, want = prx.init_state(PMC), []
+    for blk in blocks:
+        out, st = ref(blk, coeffs, st)
+        want.append(out)
+    if source == "init_state":
+        foreign, start = prx.init_state(PMC), 0
+    else:
+        st = prx.init_state(PMC)
+        for blk in blocks[:2]:
+            _, st = ref(blk, coeffs, st)
+        path = pckpt.save(str(tmp_path / "ck"), st, 0, block_count=2,
+                          input_dtype="uint8")
+        foreign, _ = pckpt.load(path, expect_input_dtype="uint8",
+                                device="cpu")
+        start = 2
+    kept = pprog.tree_map(torch.clone, foreign)
+    fn = prx.make_block_fn(PMC, True, True)
+    got, _ = fn.scan(blocks[start:start + 3], coeffs, foreign)
+    _assert_equal_trees(got, _stack(want[start:start + 3]))
+    _assert_equal_trees(foreign, kept)
+
+
+def test_scan_keys_count_and_outputs(station):
+    """A scan's key holds K: K=2 and K=3 are two entries, and a call on a
+    (3, block) channel batch is a third, not the K=3 scan.  A scan counts
+    one replay and K blocks; its returned outputs are copies that survive
+    the next scan."""
+    coeffs = prx.design_coeffs(PMC)
+    blocks = torch.stack(_blocks(station, 5))
+    fn = prx.make_block_fn(PMC, True, True)
+    pprog.reset_counts()
+    out3, st = fn.scan(blocks[:3], coeffs, prx.init_state(PMC))
+    assert pprog.counts == {"warm_ups": 0, "captures": 0, "replays": 1,
+                            "blocks": 3}
+    kept = pprog.tree_map(torch.clone, out3)
+    fn.scan(blocks[3:5], coeffs, st)
+    fn.scan(blocks[:3], coeffs, prx.init_state(PMC))
+    _assert_equal_trees(out3, kept)
+    assert pprog.counts["replays"] == 3 and pprog.counts["blocks"] == 8
+    fn(blocks[:3], coeffs, prx.init_state(PMC, (3,)))
+    assert len(fn.keys()) == 3
+    assert out3.mono.shape[0] == 3 and out3.mono.shape[1:] == kept.mono[0].shape
+
+
+def test_scan_pads_the_block_stride_to_16_bytes():
+    """A block whose byte length is not a multiple of 16 (mode 1's default
+    u8 block, 50,040 bytes) sits in the scan's static input 50,048 bytes
+    apart, every block's view contiguous and 16-byte aligned; its scan
+    equals the blocks one by one."""
+    mc = pcfg.get_mode_config(1)
+    bs = mc.default_block_size(False)
+    assert bs % 16 and pprog.block_stride((bs,), torch.uint8) == bs + 8
+    assert pprog.block_stride((2, bs), torch.uint8) == 2 * bs
+    assert pprog.block_stride((7,), torch.float32) == 8
+    blocks = torch.from_numpy(synth.synthesize_fm(
+        duration_s=0.06, mode=1, with_stereo=True, seed=6).iq_u8[:3 * bs]
+        .reshape(3, bs).copy())
+    coeffs = prx.design_coeffs(mc)
+    ref = prx.make_block_fn(mc, True, False)
+    st, want = prx.init_state(mc), []
+    for blk in blocks:
+        out, st = ref(blk, coeffs, st)
+        want.append(out)
+    fn = prx.make_block_fn(mc, True, False)
+    got, own = fn.scan(blocks, coeffs, prx.init_state(mc))
+    _assert_equal_trees(got, _stack(want))
+    _assert_equal_trees(own, st)
+    (entry,) = fn._entries.values()
+    assert entry.x.stride() == (bs + 8, 1)
+    assert all(entry.x[k].is_contiguous()
+               and entry.x[k].data_ptr() % 16 == 0 for k in range(3))
+
+
+def test_scan_counts_k_blocks_of_launches(station):
+    """The step's launches as a replay sees them: K per scan of K blocks
+    (on the CPU a scan is K direct calls; on the card the capture records
+    K blocks' launches, which each replay adds, tests/test_torch_cuda.py)."""
+    counter = pprog.COUNTED[0]
+    before = counter.launches
+
+    def step(x, params, state):
+        counter.launches += 1
+        return x * 2, state + x.sum()
+    fn = pprog.Program(step)
+    xs = torch.arange(12.0).reshape(4, 3)
+    out, st = fn.scan(xs, torch.ones(1), torch.zeros(()))
+    assert counter.launches == before + 4
+    assert torch.equal(out, xs * 2) and float(st) == float(xs.sum())
+    counter.launches = before
+
+
+def test_failed_scan_capture_raises_and_runs_nothing(station, monkeypatch):
+    """A chunk graph whose capture fails raises: no block runs eagerly in
+    its place, and the key is not kept."""
+    calls = []
+    fn = pprog.Program(lambda x, p, s: calls.append(1))
+
+    def refuse(self, entry, params, state):
+        raise RuntimeError("capture refused")
+    monkeypatch.setattr(pprog.Program, "_capture", refuse)
+    with pytest.raises(RuntimeError, match="capture refused"):
+        fn.scan(torch.stack(_blocks(station, 3)), prx.design_coeffs(PMC),
+                prx.init_state(PMC))
+    assert not calls and not fn.keys()
