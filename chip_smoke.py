@@ -83,7 +83,20 @@ Phases, one line of output each (any failure raises and exits non-zero):
    time under ``torch.profiler`` (K6 with L2 flushed before each launch);
    the PLL chain floor and K2/K3 at 2, 16 and 1,024 lanes; and a 60 s
    capture time-sharded at S = 1, 2, 4, 8 on the card against its
-   contiguous run (host clock).
+   contiguous run (host clock);
+6. (a) the four modes against the port's float64 golden receiver
+   (``golden.receiver.run_file`` on the host), the card's counterpart of
+   the JAX package's parity tests (tests/test_models_receiver.py): mode 0
+   stereo+RDS on a 0.3 s capture (seed 11) and modes 1, 2, 3 stereo on
+   0.12 s captures (seed 6), each through ``Receiver.run`` on the card
+   twice, on the normalized float input (K5) and on the raw u8 input (K1
+   at ``rf_decim`` 10, 5, 10 and 3), held per block over the blocks those
+   tests compare (6 in mode 0, 3 in the others) at their tolerances:
+   fm_demod and mono at 2e-4, left, right and rds_symbols at 5e-3; the
+   launch counts set to 0 just before and read just after (K1, K5, K2 in
+   mode 0, K3 in the stereo-only modes); (b) ``profiling.profile_stages``
+   per mode at C=1 (ms per block beside the real-time budget) and one
+   per-stage line of mode 0 at C=512 (``scripts/torch_profile_stages.py``).
 
 A kernel's bound is the larger of its bytes over 3.35 TB/s and its fp32
 operations over 67 TFLOP/s (the H100 SXM's published peaks), and for the
@@ -125,8 +138,9 @@ from sdr_tpu_torch.parallel import (Mesh, assemble_time_chunks,
                                     gather_channels, halo_raw,
                                     time_sharded_receive,
                                     time_sharded_receive_chunked)
+from sdr_tpu_torch.golden import receiver as grx
 from sdr_tpu_torch.parallel import halo as khalo
-from sdr_tpu_torch.utils import synth
+from sdr_tpu_torch.utils import profiling, synth
 from sdr_tpu_torch.utils.metrics import stereo_separation_db
 
 ROOT = Path(__file__).resolve().parent
@@ -926,11 +940,14 @@ def phase_time_sharded(rng) -> dict:
     return {"launches": launches, "calls": 1, "capture": res}
 
 
-def _scaling():
-    """``scripts/torch_multihost_scaling.py``, loaded as a module."""
+def _script(name: str):
+    """``scripts/<name>.py``, loaded as a module (the scripts' directory on
+    the path, for the helpers they share)."""
+    scripts = str(ROOT / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
     spec = importlib.util.spec_from_file_location(
-        "torch_multihost_scaling",
-        ROOT / "scripts" / "torch_multihost_scaling.py")
+        name, ROOT / "scripts" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -960,7 +977,7 @@ def phase_multi_process(main_res, sharded_res) -> None:
     time row across the process edge.  (b) and (c) are held to the JAX
     package's gates against a contiguous run of each row on the card, to
     the stereo separation and to the transmitted RDS words."""
-    mod = _scaling()
+    mod = _script("torch_multihost_scaling")
     mc = cfg.get_mode_config(MODE)
     work = WORK / "multi_process"
     work.mkdir(parents=True, exist_ok=True)
@@ -1622,6 +1639,79 @@ def phase_timing(smi: str, k1: dict, pll: dict, k4: dict, k5: dict,
     return out
 
 
+# --- phase 6 ----------------------------------------------------------------
+
+# (mode, capture seconds, seed, with RDS, blocks compared): the JAX
+# package's parity cases against its golden receiver
+# (tests/test_models_receiver.py:34-60)
+GOLDEN_CASES = ((0, 0.3, 11, True, 6), (1, 0.12, 6, False, 3),
+                (2, 0.12, 6, False, 3), (3, 0.12, 6, False, 3))
+# sdr_tpu's own tolerances there: the linear arms, then the PLL-driven ones
+GOLDEN_ATOL = {"fm_demod": 2e-4, "mono": 2e-4, "left": 5e-3, "right": 5e-3,
+               "rds_symbols": 5e-3}
+
+
+def phase_golden() -> None:
+    """Phase 6 (a): each case's float and u8 runs on the card against the
+    float64 golden receiver, per block and arm."""
+    _reset_counts()
+    lines = []
+    for mode, seconds, seed, rds, n_cmp in GOLDEN_CASES:
+        mc = cfg.get_mode_config(mode)
+        res = synth.synthesize_fm(duration_s=seconds, mode=mode,
+                                  with_stereo=True, with_rds=rds, seed=seed)
+        iq = synth.u8_to_float(res.iq_u8)
+        bs = mc.default_block_size(rds)
+        gold = grx.run_file(iq, mc, stereo=True, with_rds=rds,
+                            block_size=bs)[:n_cmp]
+        arms = [a for a in GOLDEN_ATOL if rds or a != "rds_symbols"]
+        for kind, x in (("float", iq), ("u8", res.iq_u8)):
+            outs = rx.Receiver(mode, stereo=True, with_rds=rds,
+                               device="cuda").run(x[:len(gold) * bs])
+            errs = {}
+            for a in arms:
+                got = getattr(outs, a).cpu().numpy()
+                want = np.stack([getattr(g, a) for g in gold])
+                if got.shape != want.shape:
+                    raise AssertionError(f"golden mode {mode} {kind}: {a} "
+                                         f"shape {got.shape}, golden "
+                                         f"{want.shape}")
+                errs[a] = float(np.abs(got - want).max())
+            bad = {a: e for a, e in errs.items() if not e <= GOLDEN_ATOL[a]}
+            if bad:
+                raise AssertionError(f"golden mode {mode} {kind}: max abs "
+                                     f"err {bad} over atol {GOLDEN_ATOL}")
+            lines.append(f"mode {mode} {kind} {len(gold)} blocks: "
+                         + ", ".join(f"{a} {e:.3g}" for a, e in errs.items()))
+    launches = _read_counts("golden parity", (
+        "fir_frontend_u8", "fir_decim_f32", "pll_angles", "pll_mixer"))
+    ran = {k: v for k, v in launches.items() if v}
+    print(f"golden parity on the card (max abs err against "
+          f"golden.receiver.run_file, atol {GOLDEN_ATOL}): "
+          + "; ".join(lines) + f"; launches {ran}")
+
+
+def phase_profile(smi: str) -> None:
+    """Phase 6 (b): the per-arm profile of each mode at C=1, then the
+    stages of mode 0 at C=512."""
+    for mode in range(4):
+        p = profiling.profile_stages(mode=mode, n_blocks=20, device="cuda")
+        if not all(np.isfinite(v) for v in p.values()) or p["mono_ms"] <= 0:
+            raise AssertionError(f"profile_stages mode {mode}: {p}")
+        print(f"profile [{smi}] mode {mode} C=1, ms per block (block "
+              "program): " + ", ".join(f"{k} {v:.4f}" for k, v in p.items()))
+    res = _script("torch_profile_stages").profile_case(
+        MODE, 512, torch.device("cuda"))
+    t = res["timings_ms"]
+    if not (res["stage_sum_default_kernels_ms"] > 0
+            and t["chunk_graph"] > 0):
+        raise AssertionError(f"stage profile mode {MODE} C=512: {t}")
+    print(f"stages [{smi}] mode {MODE} C=512 ({res['pll_kernel']}), ms per "
+          "block: " + ", ".join(f"{n} {v:.4f}" for n, v in t.items())
+          + f"; stage sum {res['stage_sum_default_kernels_ms']:.4f}, less "
+          f"the consuming sums {res['stage_sum_less_sums_ms']}")
+
+
 def main() -> int:
     smi = phase_card_and_build()
     rng = np.random.default_rng(SEED)
@@ -1639,6 +1729,8 @@ def main() -> int:
     check_chunks(np.random.default_rng(SEED + 7))
     time_programs(card(), np.random.default_rng(SEED + 6))
     timing = phase_timing(smi, k1, pll, k4, k5, k6)
+    phase_golden()
+    phase_profile(smi)
     errs = {"fir_frontend_u8": k1["max_abs_err"],
             "pll_angles": pll["max_abs_err"],
             "pll_mixer": pll["max_abs_err"],

@@ -267,6 +267,17 @@ class Program:
         docstring): outputs stacked (K, ..., out) and the state."""
         return self._run(xs, params, state, xs.shape[0])
 
+    def replay(self, key: tuple) -> None:
+        """Run the graph of ``key`` (one of :meth:`keys`) once more on its
+        static buffers as they stand: the state carries on in the state
+        buffers and the outputs land in the graph's buffers, with nothing
+        copied in or out.  What a step's own time is measured on
+        (``scripts/torch_profile_stages.py``)."""
+        entry = self._entries[key]
+        entry.run()
+        counts["replays"] += 1
+        counts["blocks"] += entry.blocks or 1
+
     def _run(self, x: torch.Tensor, params, state, blocks: int | None):
         p_leaves, s_leaves = tree_leaves(params), tree_leaves(state)
         dev = p_leaves[0].device

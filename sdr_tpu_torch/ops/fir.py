@@ -112,6 +112,31 @@ def _band_matrix(h: torch.Tensor, decim: int,
     return torch.where(valid, h[nmap], 0.0), t_win
 
 
+def _multi_band_matrix(hs: torch.Tensor, u_blk: int
+                       ) -> tuple[torch.Tensor, int]:
+    """Banded W (T_win, C, u_blk) of the unit-stride filters ``hs`` (C,
+    K), side by side."""
+    nmap, valid, t_win = _maps_on(_decim_band_maps,
+                                  (hs.shape[1], 1, u_blk), hs.device)
+    # hs.T is (K, C); index taps with nmap (T_win, U) -> (T_win, U, C)
+    w3 = torch.where(valid[..., None], hs.T[nmap], 0.0)
+    return w3.movedim(-1, 1), t_win
+
+
+def _resample_band_matrix(h: torch.Tensor, decim: int, upsamp: int
+                          ) -> tuple[torch.Tensor, int]:
+    """Banded W (T_win, upsamp) of the resampler, xU gain: one phase cycle
+    of U outputs per window (:func:`_resample_band_np`)."""
+    o_idx, n_idx, valid, t_win = _maps_on(_resample_band_np,
+                                          (h.shape[0], decim, upsamp),
+                                          h.device)
+    vals = torch.where(valid, h[n_idx] * upsamp, 0.0)
+    cols = torch.arange(upsamp, device=h.device).expand_as(o_idx)
+    w = torch.zeros((t_win, upsamp), dtype=torch.float32, device=h.device)
+    w.index_put_((o_idx, cols), vals, accumulate=True)
+    return w, t_win
+
+
 def _gather_windows(xc: torch.Tensor, n_win: int, stride: int,
                     t_win: int) -> torch.Tensor:
     """(..., L) -> (..., n_win, t_win) overlapped windows.
@@ -187,15 +212,12 @@ def fir_block_multi_mm(x: torch.Tensor, hs: torch.Tensor,
     product.  ``hs`` is (C, K); ``states`` is the one shared (..., K-1)
     tail.  Returns ((..., C, N), new_state).  Port of
     ``sdr_tpu.ops.fir.fir_block_multi_mm``."""
-    c, k = hs.shape
+    k = hs.shape[1]
     n = x.shape[-1]
     u_blk = min(u_blk, n)
     n_win = _cdiv(n, u_blk)
     xc = torch.cat([states, x], dim=-1)
-    nmap, valid, t_win = _maps_on(_decim_band_maps, (k, 1, u_blk), hs.device)
-    # hs.T is (K, C); index taps with nmap (T_win, U) -> (T_win, U, C)
-    w3 = torch.where(valid[..., None], hs.T[nmap], 0.0)
-    w3 = w3.movedim(-1, 1)                              # (T_win, C, U)
+    w3, t_win = _multi_band_matrix(hs, u_blk)
     xw = _gather_windows(xc, n_win, u_blk, t_win)
     y = torch.einsum("...wt,tcu->...cwu", xw, w3)
     y = y.reshape(y.shape[:-2] + (n_win * u_blk,))[..., :n]
@@ -237,13 +259,8 @@ def fir_block_resample_mm(x: torch.Tensor, h: torch.Tensor,
     if n % decim != 0:
         return fir_block_resample(x, h, state, decim, upsamp)
     n_win = n // decim
-    o_idx, n_idx, valid, t_win = _maps_on(_resample_band_np,
-                                          (k, decim, upsamp), h.device)
     xc = torch.cat([state, x], dim=-1)
-    vals = torch.where(valid, h[n_idx] * upsamp, 0.0)
-    cols = torch.arange(upsamp, device=h.device).expand_as(o_idx)
-    w = torch.zeros((t_win, upsamp), dtype=torch.float32, device=h.device)
-    w.index_put_((o_idx, cols), vals, accumulate=True)
+    w, t_win = _resample_band_matrix(h, decim, upsamp)
     xw = _gather_windows(xc, n_win, decim, t_win)
     y = torch.matmul(xw, w)
     y = y.reshape(y.shape[:-2] + (n_win * upsamp,))

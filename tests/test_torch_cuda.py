@@ -46,7 +46,12 @@ u8 at C=1 and C=512, float, mode 2, blocks whose byte length is not a
 multiple of 16, a chunk followed by a tail, a host recording through
 pinned staging with ``process``/``run``/``process`` interleaved and
 ``iter_run``, a checkpoint restart between two runs, the time-sharded S=8 run with its warm-up graph (single-shot
-and chunked); a chunk capture made to fail raises.
+and chunked); a chunk capture made to fail raises.  Mode 3 stereo, on
+float input (K5) and raw u8 (K1 at decimation 3), against the port's
+float64 golden receiver at the JAX package's tolerances (2e-4 on
+fm_demod and mono, 5e-3 on left and right), the one mode no earlier card
+check ran; ``profiling.profile_stages`` returns positive times on the
+card.
 """
 
 import json
@@ -62,6 +67,7 @@ from sdr_tpu_torch import checkpoint as pckpt
 from sdr_tpu_torch import config as cfg
 from sdr_tpu_torch import stimulus
 from sdr_tpu_torch.golden import filters as gfilt
+from sdr_tpu_torch.golden import receiver as grx
 from sdr_tpu_torch.models import channelizer as pchan
 from sdr_tpu_torch.models import program as pprog
 from sdr_tpu_torch.models import receiver as prx
@@ -70,7 +76,7 @@ from sdr_tpu_torch.ops import pll as tpll
 from sdr_tpu_torch.parallel import halo as phalo
 from sdr_tpu_torch.parallel import time_shard as pts
 from sdr_tpu_torch.parallel.mesh import Mesh
-from sdr_tpu_torch.utils import synth
+from sdr_tpu_torch.utils import profiling, synth
 
 pytestmark = pytest.mark.cuda
 
@@ -967,3 +973,35 @@ def test_failed_chunk_capture_raises(dev, monkeypatch):
     assert not fn.keys() and not fn.captures
     assert pprog.counts["replays"] == 0 and pprog.counts["blocks"] == 0
     torch.cuda.synchronize()
+
+
+# --- the golden receiver and the profile on the card --------------------
+
+
+@pytest.mark.parametrize("kind", ["float", "u8"])
+def test_mode3_matches_golden_receiver(dev, kind):
+    """Mode 3 stereo (K3; K5 on float, K1 at decimation 3 on u8) against
+    ``golden.receiver.run_file`` over 3 blocks, chip_smoke.py phase 6's
+    case."""
+    mc = cfg.get_mode_config(3)
+    res = synth.synthesize_fm(duration_s=0.12, mode=3, with_stereo=True,
+                              with_rds=False, seed=6)
+    iq = synth.u8_to_float(res.iq_u8)
+    bs = mc.default_block_size()
+    gold = grx.run_file(iq, mc, stereo=True, block_size=bs)[:3]
+    x = iq if kind == "float" else res.iq_u8
+    outs = prx.Receiver(3, stereo=True, device=dev).run(x[:3 * bs])
+    for arm, atol in (("fm_demod", 2e-4), ("mono", 2e-4), ("left", 5e-3),
+                      ("right", 5e-3)):
+        np.testing.assert_allclose(
+            getattr(outs, arm).cpu().numpy(),
+            np.stack([getattr(g, arm) for g in gold]), rtol=0, atol=atol,
+            err_msg=arm)
+
+
+def test_profile_stages_on_card(dev):
+    p = profiling.profile_stages(mode=0, n_blocks=5, device=dev)
+    for k in ("mono_ms", "stereo_ms", "stereo_rds_ms"):
+        assert p[k] > 0, (k, p)
+    assert p["realtime_budget_ms"] == 24.0
+    assert p["stereo_rds_ms"] < p["realtime_budget_ms"]

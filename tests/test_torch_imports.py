@@ -2,8 +2,10 @@
 
 * Importing ``sdr_tpu_torch`` and every submodule loads no ``jax`` and
   nothing of the JAX package ``sdr_tpu``, not even its numpy modules: the
-  machine with the GPU has no JAX, and the port keeps its own copies.
-  Checked in a fresh interpreter whose import system refuses both, and by
+  machine with the GPU has no JAX, and the port keeps its own copies (its
+  golden receiver and utilities among them).  Checked in a fresh
+  interpreter whose import system refuses both (for the port, the profile
+  script and ``chip_smoke.py``), and by
   scanning the imports of the port, ``chip_smoke.py``, the card-only
   tests and the port's scripts (``scripts/torch_*.py``).
 * A kernel wrapper handed a CUDA tensor launches its kernel or raises: no
@@ -57,6 +59,50 @@ import importlib
 for mod in {_port_modules()!r}:
     importlib.import_module(mod)
 import sdr_tpu_torch
+assert not [m for m in sys.modules if refused(m)]
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr[-3000:]
+
+
+#: the modules and scripts the port added last, each its JAX counterpart's
+#: copy or counterpart: the float64 golden receiver, the utilities and the
+#: per-stage profile
+NEWEST = ("sdr_tpu_torch.golden.demod", "sdr_tpu_torch.golden.pll",
+          "sdr_tpu_torch.golden.spectrum", "sdr_tpu_torch.golden.receiver",
+          "sdr_tpu_torch.utils.gen", "sdr_tpu_torch.utils.logfiles",
+          "sdr_tpu_torch.utils.profiling", "sdr_tpu_torch.utils.plotting",
+          "sdr_tpu_torch.utils.anim")
+SCRIPTS = ("torch_profile_stages", "torch_studies")
+
+
+def test_guards_cover_the_newest_modules():
+    assert set(NEWEST) <= set(_port_modules())
+
+
+def test_scripts_and_smoke_load_no_jax():
+    """The profile script and ``chip_smoke.py`` import (their bodies run
+    only as ``__main__``) in an interpreter that refuses jax and
+    ``sdr_tpu``."""
+    code = f"""
+import importlib, sys
+sys.path.insert(0, {str(ROOT / "scripts")!r})
+
+def refused(name):
+    return (name in ("jax", "sdr_tpu")
+            or name.startswith(("jax.", "jaxlib", "sdr_tpu.")))
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if refused(name):
+            raise ImportError("the PyTorch port must not import " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+for mod in {SCRIPTS!r} + ("chip_smoke",):
+    importlib.import_module(mod)
 assert not [m for m in sys.modules if refused(m)]
 print("ok")
 """

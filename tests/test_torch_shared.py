@@ -2,12 +2,14 @@
 originals, and the port's entry points defaulting to the card.
 
 ``sdr_tpu_torch`` imports nothing of ``sdr_tpu``: it keeps copies of
-``config``, ``golden.filters``, ``golden.rds``, ``io``, ``utils.synth``
-and ``utils.metrics`` and its own binding of the shared C++ runtime.  Each
+``config``, ``golden.filters``, ``golden.rds``, ``io``, ``utils.synth``,
+``utils.metrics``, ``utils.gen``, ``utils.logfiles`` and the MAC model of
+``utils.profiling``, and its own binding of the shared C++ runtime.  Each
 copy must behave as its original, so every comparison here is exact:
 configs field by field, filter taps, the RDS decode of one synthesized
-station, synthesized I/Q from one seed, ``io``'s conversions and the
-metrics of one stereo capture.
+station, synthesized I/Q from one seed, ``io``'s conversions, the metrics
+of one stereo capture, the MAC model per mode, the generators and the
+gnuplot dumps (the golden receiver: ``tests/test_torch_golden.py``).
 """
 
 import dataclasses
@@ -22,7 +24,10 @@ from sdr_tpu import io as jio
 from sdr_tpu.golden import filters as jfilt
 from sdr_tpu.golden import rds as jgrds
 from sdr_tpu.models import rds_decode as jrds
+from sdr_tpu.utils import gen as jgen
+from sdr_tpu.utils import logfiles as jlog
 from sdr_tpu.utils import metrics as jmetrics
+from sdr_tpu.utils import profiling as jprof
 from sdr_tpu.utils import synth as jsynth
 
 import sdr_tpu_torch
@@ -35,7 +40,10 @@ from sdr_tpu_torch.models import receiver as prx
 from sdr_tpu_torch.models.channelizer import Channelizer
 from sdr_tpu_torch.parallel import mesh as pmesh
 from sdr_tpu_torch.parallel import multihost as pmh
+from sdr_tpu_torch.utils import gen as pgen
+from sdr_tpu_torch.utils import logfiles as plog
 from sdr_tpu_torch.utils import metrics as pmetrics
+from sdr_tpu_torch.utils import profiling as pprof
 from sdr_tpu_torch.utils import synth as psynth
 
 CUSTOM = dict(rf_fs=1.44e6, if_fs=240e3, audio_fs=32e3,
@@ -205,6 +213,40 @@ def test_metrics_equal():
                             rng.integers(0, 2, size=(5, 16))])
     assert pmetrics.rds_accuracy(words, sent) == \
         jmetrics.rds_accuracy(words, sent)
+
+
+# --- MAC model, generators, log files ------------------------------------
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3, "custom"])
+@pytest.mark.parametrize("stereo", [False, True])
+def test_mac_model_equal(mode, stereo):
+    p, j = ((pcfg.custom_mode(**CUSTOM), jcfg.custom_mode(**CUSTOM))
+            if mode == "custom" else
+            (pcfg.get_mode_config(mode), jcfg.get_mode_config(mode)))
+    for taps in (101, 151):
+        assert pprof.mac_per_audio_sample(p, stereo, taps) == \
+            jprof.mac_per_audio_sample(j, stereo, taps)
+        assert pprof.macs_per_second(p, stereo, taps) == \
+            jprof.macs_per_second(j, stereo, taps)
+
+
+def test_generators_equal():
+    assert np.array_equal(pgen.generate_sin(48e3, 1e3, 999, 0.5, 0.2),
+                          jgen.generate_sin(48e3, 1e3, 999, 0.5, 0.2))
+    for kw in ({}, {"amplitudes": [1.0, 0.3], "phases": [0.1, 2.0]}):
+        assert np.array_equal(pgen.add_sin(240e3, [19e3, 38e3], 4096, **kw),
+                              jgen.add_sin(240e3, [19e3, 38e3], 4096, **kw))
+    assert np.array_equal(pgen.random_samples(500, 3.0, seed=7),
+                          jgen.random_samples(500, 3.0, seed=7))
+
+
+def test_log_files_equal(tmp_path):
+    x = np.random.default_rng(4).standard_normal(50)
+    p = plog.log_vector("v", x, out_dir=str(tmp_path / "p"), precision=6)
+    j = jlog.log_vector("v", x, out_dir=str(tmp_path / "j"), precision=6)
+    assert open(p).read() == open(j).read()
+    assert np.array_equal(plog.gen_index_vector(7), jlog.gen_index_vector(7))
 
 
 # --- entry points default to the card ---------------------------------------
