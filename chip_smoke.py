@@ -96,7 +96,23 @@ Phases, one line of output each (any failure raises and exits non-zero):
    launch counts set to 0 just before and read just after (K1, K5, K2 in
    mode 0, K3 in the stereo-only modes); (b) ``profiling.profile_stages``
    per mode at C=1 (ms per block beside the real-time budget) and one
-   per-stage line of mode 0 at C=512 (``scripts/torch_profile_stages.py``).
+   per-stage line of mode 0 at C=512 (``scripts/torch_profile_stages.py``);
+7. on one line: (a) ``models.run_blocks_scan`` on SCAN_BLOCKS + 2 blocks
+   of a C=512 mode-0 stereo+RDS u8 batch on the card, torch.equal to
+   ``run_blocks`` over the same blocks, the caller's state torch.equal to
+   itself before the call, K1 and K3 launched (the counts set to 0 just
+   before and read just after), a repeat call chained from the first
+   call's state with no graph capture and the first call's outputs and
+   state untouched, and wall ms per block of ``run_blocks_scan`` and
+   ``run_blocks`` (a program captured before) in turns; (b) zero-block
+   runs: ``Receiver.run`` of a 100-byte capture at C=1 and C=512,
+   ``run_blocks_scan`` of (0, 512, 115200) and ``channel_sharded_run`` of
+   8 channels over two shards of the card give every arm float32 on the
+   card with ``receiver.block_out_lengths``' lengths, the states as they
+   were, and launch no kernel; (c) ``ops.pll.pll_block(use_atan2=True)``
+   (plain PyTorch, no kernel) over two chained 2,000-sample blocks of
+   tests/test_ops.py's 19,020 Hz tone against K2's path
+   (``pll_cuda.pll_block_kernel``) at 5e-3.
 
 A kernel's bound is the larger of its bytes over 3.35 TB/s and its fp32
 operations over 67 TFLOP/s (the H100 SXM's published peaks), and for the
@@ -1712,6 +1728,204 @@ def phase_profile(smi: str) -> None:
           f"the consuming sums {res['stage_sum_less_sums_ms']}")
 
 
+# --- phase 7 ----------------------------------------------------------------
+
+SHORT_CAPTURE = 100     # bytes: less than one block in every mode
+ZERO_BATCH = 512
+TIMED_CALLS = 3         # of run_blocks_scan and of run_blocks, in turns
+
+
+def _wall_s(fn):
+    """``fn()``'s result and its host wall seconds, the card idle before
+    and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _clone(tree):
+    return program.tree_map(torch.clone, tree)
+
+
+def _check_empty(label: str, outs, lead: tuple, lengths) -> None:
+    """Every arm empty, float32 on the card, with ``lengths``' out
+    lengths."""
+    for name, n in zip(outs._fields, lengths):
+        a = getattr(outs, name)
+        if (tuple(a.shape) != lead + (n,) or a.device.type != "cuda"
+                or a.dtype != torch.float32):
+            raise AssertionError(f"{label}: {name} {tuple(a.shape)} "
+                                 f"{a.dtype} on {a.device}, want "
+                                 f"{lead + (n,)} float32 on cuda")
+
+
+def _scan_full_width(smi: str, capture, rng) -> str:
+    """Phase 7 (a): ``run_blocks_scan`` on SCAN_BLOCKS + 2 blocks of the
+    C=512 u8 batch on the card."""
+    mc = cfg.get_mode_config(MODE)
+    bs = mc.default_block_size(True)
+    n = rx.SCAN_BLOCKS + 2
+    batch = _serving_batch(capture.iq_u8, ZERO_BATCH, n * bs, rng)
+    blocks = torch.from_numpy(np.ascontiguousarray(np.moveaxis(
+        batch.reshape(ZERO_BATCH, n, bs), 1, 0))).cuda()
+    del batch
+    coeffs = rx.design_coeffs(mc, device="cuda")
+    init = lambda: rx.init_state(mc, (ZERO_BATCH,), device="cuda")
+    state = init()
+    before = _clone(state)
+
+    _reset_counts()
+    (outs, st), first_s = _wall_s(lambda: rx.run_blocks_scan(
+        blocks, coeffs, state, MODE, True, True))
+    launches = _read_counts("run_blocks_scan", ("fir_frontend_u8",
+                                                "pll_mixer"))
+    first_captures = program.counts["captures"]
+    bad = _departs(state, before)
+    if bad:
+        raise AssertionError(f"run_blocks_scan changed the caller's state: "
+                             f"{bad}")
+    want = rx.run_blocks(blocks, coeffs, init(), mc, True, True)
+    bad = _departs((outs, st), want)
+    if bad:
+        raise AssertionError(f"run_blocks_scan vs run_blocks: {bad}")
+    del want
+
+    # a repeat call chained from the first call's state: no capture, and
+    # the first call's outputs and state stay as they were
+    kept = _clone((outs, st))
+    program.reset_counts()
+    (outs2, st2), repeat_s = _wall_s(lambda: rx.run_blocks_scan(
+        blocks, coeffs, st, MODE, True, True))
+    repeat_captures = program.counts["captures"]
+    bad = _departs((outs, st), kept)
+    if bad or repeat_captures:
+        raise AssertionError(f"run_blocks_scan repeat call: {repeat_captures}"
+                             f" captures; the first call's results: {bad}")
+    del outs2, st2, kept
+
+    # wall per block in turns: run_blocks_scan (its kept program) and
+    # run_blocks on a program of its own, captured before the turns
+    fn = rx.make_block_fn(mc, True, True)
+    rx.run_blocks(blocks, coeffs, init(), mc, True, True, fn=fn)
+    scan_ms, run_ms = [], []
+    for _ in range(TIMED_CALLS):
+        scan_ms.append(_wall_s(lambda: rx.run_blocks_scan(
+            blocks, coeffs, state, MODE, True, True))[1] * 1e3 / n)
+        fresh = init()
+        run_ms.append(_wall_s(lambda: rx.run_blocks(
+            blocks, coeffs, fresh, mc, True, True, fn=fn))[1] * 1e3 / n)
+    caps = rx._scan_program(mc, True, True).captures
+    cap_s = ", ".join(f"{c.blocks} blocks: warm-up {c.warm_up_s:.3f} s + "
+                      f"capture {c.capture_s:.3f} s" for c in caps)
+    return (f"(a) run_blocks_scan mode {MODE} stereo+RDS u8 C={ZERO_BATCH} x "
+            f"{n} blocks torch.equal to run_blocks, the caller's state "
+            f"unchanged; first call {first_s:.3f} s with {first_captures} "
+            f"graph captures ({cap_s}); repeat call {repeat_s:.4f} s, "
+            f"{repeat_captures} captures, the first call's outputs and state "
+            f"unchanged; launches {launches}; [{smi}] wall ms per block in "
+            f"turns, run_blocks_scan {[round(v, 4) for v in scan_ms]}, "
+            f"run_blocks {[round(v, 4) for v in run_ms]}")
+
+
+def _zero_blocks() -> str:
+    """Phase 7 (b): runs of zero blocks on the card launch nothing and
+    return empty arms on the card with the states as they were."""
+    mc = cfg.get_mode_config(MODE)
+    bs = mc.default_block_size(True)
+    lengths = rx.block_out_lengths(mc, bs, True, True)
+    short = np.arange(SHORT_CAPTURE, dtype=np.uint8)
+    _reset_counts()
+    for c in (1, ZERO_BATCH):
+        lead = (c,) if c > 1 else ()
+        r = rx.Receiver(MODE, stereo=True, with_rds=True, batch_shape=lead,
+                        device="cuda")
+        state, before = r.state, _clone(r.state)
+        outs = r.run(np.broadcast_to(short, lead + short.shape).copy())
+        _check_empty(f"Receiver.run C={c}", outs, (0,) + lead, lengths)
+        bad = _departs(r.state, before)
+        if r.state is not state or bad:
+            raise AssertionError(f"Receiver.run C={c} of zero blocks changed "
+                                 f"its state: {bad}")
+    state = rx.init_state(mc, (ZERO_BATCH,), device="cuda")
+    before = _clone(state)
+    outs, st = rx.run_blocks_scan(
+        torch.empty((0, ZERO_BATCH, bs), dtype=torch.uint8, device="cuda"),
+        rx.design_coeffs(mc, device="cuda"), state, MODE, True, True)
+    _check_empty("run_blocks_scan", outs, (0, ZERO_BATCH), lengths)
+    bad = _departs((state, st), (before, before))
+    if bad:
+        raise AssertionError(f"run_blocks_scan of zero blocks: {bad}")
+    shards = channel_sharded_run(np.zeros((8, SHORT_CAPTURE), np.uint8),
+                                 Mesh(["cuda:0"] * 2, ("ch",)), MODE,
+                                 stereo=True, with_rds=True)
+    init = rx.init_state(mc, (4,), device="cuda")
+    for d, (outs, st) in enumerate(zip(shards.outputs, shards.states)):
+        _check_empty(f"channel_sharded_run shard {d}", outs, (0, 4), lengths)
+        bad = _departs(st, init)
+        if bad:
+            raise AssertionError(f"channel_sharded_run shard {d}: {bad}")
+    torch.cuda.synchronize()
+    launches = {name: spec["counter"].launches
+                for name, spec in KERNELS.items()}
+    if any(launches.values()) or any(program.counts.values()):
+        raise AssertionError(f"zero blocks launched {launches}, programs "
+                             f"{program.counts}")
+    return (f"(b) zero blocks on the card: Receiver.run of {SHORT_CAPTURE} "
+            f"bytes at C=1 and C={ZERO_BATCH}, run_blocks_scan of (0, "
+            f"{ZERO_BATCH}, {bs}), channel_sharded_run of 8 channels over 2 "
+            f"shards: arms {dict(zip(rx.BlockOutputs._fields, lengths))} "
+            "long, float32 on cuda, states as they were; launches "
+            f"{launches}, programs {program.counts}")
+
+
+def _pll_atan2() -> str:
+    """Phase 7 (c): the literal atan2 PLL on the card against K2's path
+    over two chained blocks of the tests/test_ops.py tone."""
+    fs, n = 240e3, 2000
+    t = np.arange(2 * n) / fs
+    x = torch.from_numpy((0.4 * np.sin(2 * np.pi * 19020 * t + 0.3)
+                          + 0.01 * np.sin(2 * np.pi * 700 * t)
+                          ).astype(np.float32)).cuda()
+    params = tpll.PllParams(freq=19e3, fs=fs, nco_scale=2.0)
+
+    def chain(block_fn) -> list:
+        st, outs = tpll.pll_init(nco_q_last=0.0, device="cuda"), []
+        for b in range(2):
+            i, q, st = block_fn(x[b * n:(b + 1) * n], st, params)
+            outs.append((i, q))
+        return outs
+
+    _reset_counts()
+    atan2, atan2_s = _wall_s(lambda: chain(
+        lambda *a: tpll.pll_block(*a, use_atan2=True)))
+    atan2_launches = {name: spec["counter"].launches
+                      for name, spec in KERNELS.items()}
+    if any(atan2_launches.values()):
+        raise AssertionError(f"pll_block(use_atan2=True) launched "
+                             f"{atan2_launches}")
+    err = max(max_err(a, b) for got, want in
+              zip(atan2, chain(pll_cuda.pll_block_kernel))
+              for a, b in zip(got, want))
+    k2 = pll_cuda.pll_angles.launches
+    if not k2 or not err <= PLL_ATOL:
+        raise AssertionError(f"atan2 PLL vs K2: max abs err {err:.3g} (atol "
+                             f"{PLL_ATOL}), K2 launches {k2}")
+    return (f"(c) pll_block(use_atan2=True) on the card, 2 x {n} samples, "
+            f"launches nothing ({atan2_s:.3f} s), vs K2's path "
+            f"(pll_cuda.pll_block_kernel, {k2} launches): max abs err "
+            f"{err:.3g} on nco_i/nco_q (atol {PLL_ATOL})")
+
+
+def phase_scan_and_zero_blocks(smi: str, capture) -> None:
+    """Phase 7: run_blocks_scan at full width, zero-block runs, and the
+    literal atan2 PLL, on one line."""
+    print("scan and zero blocks: " + "; ".join((
+        _scan_full_width(smi, capture, np.random.default_rng(SEED + 8)),
+        _zero_blocks(), _pll_atan2())))
+
+
 def main() -> int:
     smi = phase_card_and_build()
     rng = np.random.default_rng(SEED)
@@ -1731,6 +1945,7 @@ def main() -> int:
     timing = phase_timing(smi, k1, pll, k4, k5, k6)
     phase_golden()
     phase_profile(smi)
+    phase_scan_and_zero_blocks(smi, main_path["capture"])
     errs = {"fir_frontend_u8": k1["max_abs_err"],
             "pll_angles": pll["max_abs_err"],
             "pll_mixer": pll["max_abs_err"],

@@ -14,4 +14,5 @@ from sdr_tpu_torch.models.receiver import (  # noqa: F401
     make_block_fn,
     process_block,
     run_blocks,
+    run_blocks_scan,
 )

@@ -14,8 +14,10 @@ per block, with the state donated, the counterpart of the JAX package's
 jitted ``_block_step``.  Streaming over a recording (:func:`run_blocks`,
 :class:`Receiver`) replays a graph of :data:`SCAN_BLOCKS` chained blocks
 (``Program.scan``), the counterpart of ``run_blocks_scan``'s scan, and the
-per-block graph for the remaining blocks.  The symbol-rate RDS decode runs
-on the host (``sdr_tpu_torch.models.rds_decode``).
+per-block graph for the remaining blocks; :func:`run_blocks_scan` is that
+function with the JAX package's signature and its state not donated.  The
+symbol-rate RDS decode runs on the host
+(``sdr_tpu_torch.models.rds_decode``).
 
 Kernels: the RF front-end is kernel K1 (``ops.fir_frontend``) on raw u8
 input and K5 (``ops.fir_decim``) on float input, as the channelizer feeds
@@ -28,6 +30,7 @@ Everything else is plain PyTorch, as it was XLA in the JAX package.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -492,13 +495,34 @@ def run_span(fn: program.Program, xs: torch.Tensor, coeffs, state
     return map_state(lambda *arm: torch.stack(arm), *outs), state
 
 
+def block_out_lengths(mc: cfg.ModeConfig, block_len: int,
+                      stereo: bool = True, with_rds: bool = False,
+                      rds_debug_q: bool = False) -> BlockOutputs:
+    """The length of each arm :func:`process_block` gives a block of
+    ``block_len`` interleaved I/Q values, without running it: fm_demod at
+    the IF rate, mono (and left/right with ``stereo``) at the audio rate,
+    the RDS symbols (and the quadrature arm with ``rds_debug_q``) at the
+    symbol rate when ``with_rds`` and the mode has RDS; a disabled arm
+    is 0."""
+    n_if = block_len // 2 // mc.rf_decim
+    n_audio = n_if * mc.audio_upsamp // mc.audio_decim
+    r = mc.rds if with_rds else None
+    n_sym = n_if * r.upsamp // r.decim if r else 0
+    return BlockOutputs(fm_demod=n_if, mono=n_audio,
+                        left=n_audio if stereo else 0,
+                        right=n_audio if stereo else 0,
+                        rds_symbols=n_sym,
+                        rds_symbols_q=n_sym if rds_debug_q else 0)
+
+
 def run_blocks(iq_blocks: torch.Tensor, coeffs: ReceiverCoeffs,
                state: ReceiverState, mc: cfg.ModeConfig, stereo: bool = True,
                with_rds: bool = False, fused_mixer: bool | None = None,
                fn: program.Program | None = None
                ) -> tuple[BlockOutputs, ReceiverState]:
-    """Stream blocks through a block program: the counterpart of the JAX
-    package's ``run_blocks_scan``.  Its scan becomes one replay of a graph
+    """Stream blocks through a block program, the state donated (the JAX
+    package's ``run_blocks_scan`` with its functional contract is
+    :func:`run_blocks_scan`).  Its scan becomes one replay of a graph
     of :data:`SCAN_BLOCKS` chained blocks per whole chunk, and the n mod K
     blocks left over replay the per-block graph of the same program; both
     give the chained blocks' outputs and state bit for bit.
@@ -510,7 +534,19 @@ def run_blocks(iq_blocks: torch.Tensor, coeffs: ReceiverCoeffs,
     out_len) on the program's device and the final state, which is
     ``fn``'s state buffers.  ``fn`` is the program to replay (default: a
     new :func:`make_block_fn` for this call); ``fused_mixer`` pins the PLL
-    kernel of that default (None: ``process_block``'s shape policy)."""
+    kernel of that default (None: ``process_block``'s shape policy).
+
+    Zero blocks run nothing: every arm comes back empty, (0, ...,
+    out_len) in float32 on the device of ``coeffs``, the program's, with
+    the lengths of :func:`block_out_lengths`, and ``state`` is returned as
+    it came, as the JAX package's scan of no step returns its carry."""
+    if iq_blocks.shape[0] == 0:
+        lengths = block_out_lengths(mc, iq_blocks.shape[-1], stereo,
+                                    with_rds)
+        lead = tuple(iq_blocks.shape[:-1])
+        return BlockOutputs(*[
+            torch.zeros(lead + (n,), dtype=_F32, device=coeffs.rf.device)
+            for n in lengths]), state
     if fn is None:
         fn = make_block_fn(mc, stereo, with_rds, fused_mixer=fused_mixer)
     parts = []
@@ -518,6 +554,41 @@ def run_blocks(iq_blocks: torch.Tensor, coeffs: ReceiverCoeffs,
         out, state = run_span(fn, iq_blocks[span], coeffs, state)
         parts.append(out)
     return map_state(lambda *arm: torch.cat(arm), *parts), state
+
+
+def run_blocks_scan(iq_blocks: torch.Tensor, coeffs: ReceiverCoeffs,
+                    state: ReceiverState, mode, stereo: bool = True,
+                    with_rds: bool = False
+                    ) -> tuple[BlockOutputs, ReceiverState]:
+    """A whole recording through one block program, with the JAX package's
+    signature and its functional contract: ``mode`` is an int, a ``Mode``
+    or a ``ModeConfig``; ``iq_blocks`` is (n_blocks, ..., block_len);
+    returns the outputs stacked (n_blocks, ..., out_len) and the final
+    state.
+
+    It runs :func:`run_blocks` (on the card chunk graphs of
+    :data:`SCAN_BLOCKS` blocks and the block's graph for the rest) on a
+    program kept per ``(mode, stereo, with_rds)``, as ``jax.jit`` keeps
+    one per static arguments, so a repeat call replays the graphs captured
+    by the first.  Unlike :func:`run_blocks` nothing is donated: the
+    caller's ``state`` is copied in and left as it was, and the returned
+    state is a copy of the program's buffers, which the next call does not
+    touch.  Zero blocks give :func:`run_blocks`' empty outputs and a copy
+    of ``state``."""
+    mc = (mode if isinstance(mode, cfg.ModeConfig)
+          else cfg.get_mode_config(mode))
+    outs, new_state = run_blocks(iq_blocks, coeffs, state, mc, stereo,
+                                 with_rds, fn=_scan_program(mc, stereo,
+                                                            with_rds))
+    return outs, map_state(torch.clone, new_state)
+
+
+@functools.cache
+def _scan_program(mc: cfg.ModeConfig, stereo: bool,
+                  with_rds: bool) -> program.Program:
+    """:func:`run_blocks_scan`'s program of one (mode, stereo, with_rds),
+    kept for the life of the process with its graphs."""
+    return make_block_fn(mc, stereo, with_rds)
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -596,16 +667,15 @@ class Receiver:
     def run(self, iq, block_size: Optional[int] = None) -> BlockOutputs:
         """Stream a whole recording, a chunk graph per ``SCAN_BLOCKS``
         blocks (:func:`run_blocks`); returns the per-block outputs stacked
-        on a new leading block axis, on this receiver's device.  A host recording stays on the host: each chunk is copied
-        into the program's static input."""
+        on a new leading block axis, on this receiver's device.  A host
+        recording stays on the host: each chunk is copied into the
+        program's static input.  A capture shorter than one block gives
+        every arm empty, (0, ..., out_len), and leaves :attr:`state` as it
+        was (:func:`run_blocks`)."""
         if block_size is None:
             block_size = self.mc.default_block_size(self.with_rds)
         iq = self._as_input(iq, False)
-        n_blocks = iq.shape[-1] // block_size
-        if n_blocks == 0:
-            raise ValueError(f"capture of {iq.shape[-1]} samples is shorter "
-                             f"than one block of {block_size}")
-        return self._run_blocks(iq, n_blocks, block_size)
+        return self._run_blocks(iq, iq.shape[-1] // block_size, block_size)
 
     def iter_run(self, iq, block_size: Optional[int] = None,
                  chunk_blocks: int = 64):

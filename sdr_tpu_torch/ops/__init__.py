@@ -15,13 +15,13 @@ contracts; ``fir_block`` and ``fir_block_decim`` are the banded forms
 (the JAX package's convolution forms are not ported).
 """
 
-from sdr_tpu_torch.golden.filters import resample_state_len  # noqa: F401
 from sdr_tpu_torch.ops.demod import fm_demod_arctan, fm_demod_quad  # noqa: F401
 from sdr_tpu_torch.ops.fir import (  # noqa: F401
     allpass_delay,
     fir_block,
     fir_block_decim,
     fir_block_resample,
+    resample_state_len,
 )
 from sdr_tpu_torch.ops.pll import PllParams, pll_block, pll_init  # noqa: F401
 from sdr_tpu_torch.ops.spectrum import dft_matmul, estimate_psd  # noqa: F401

@@ -27,6 +27,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# the natural-domain resampler state length, ceil(K/U) - 1, a name of the
+# JAX package's ops.fir; one function with the port's golden filters'
+from sdr_tpu_torch.golden.filters import resample_state_len  # noqa: F401
+
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)

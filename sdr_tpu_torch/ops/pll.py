@@ -18,7 +18,8 @@ The phase detector is transcendental-free: for a real input ``x`` the
 reference's ``atan2(x*(-sin a), x*cos a)`` is exactly ``wrap_pi(-a)`` for
 x > 0, ``wrap_pi(pi - a)`` for x < 0, and the IEEE atan2 of signed zeros
 for x == 0.  So the loop needs only adds, compares and selects, and every
-cos/sin runs once over the whole block outside it.
+cos/sin runs once over the whole block outside it.  ``pll_block(...,
+use_atan2=True)`` keeps the literal recurrence for A/B validation.
 """
 
 from __future__ import annotations
@@ -158,17 +159,51 @@ def _run(x: torch.Tensor, state: PllState, c: dict
     return nco_i, nco_q, new_state
 
 
-def pll_block(x: torch.Tensor, state: PllState, params: PllParams
+def _run_atan2(x: torch.Tensor, state: PllState, c: dict
+               ) -> tuple[torch.Tensor, torch.Tensor, PllState]:
+    """The reference's literal recurrence: an ``atan2`` phase detector on
+    the carried feedback, and the feedback's ``cos``/``sin`` and the NCO's
+    evaluated at every step inside the loop."""
+    xs = x.movedim(-1, 0)
+    integ, phase, psi = state.integrator, state.phase_est, state.osc_phase
+    fb_i, fb_q = state.feedback_i, state.feedback_q
+    outs_i, outs_q = torch.empty_like(xs), torch.empty_like(xs)
+    for t in range(xs.shape[0]):
+        xk = xs[t]
+        err = torch.atan2(xk * -fb_q, xk * fb_i)
+        integ = integ + c["ki"] * err
+        phase = torch.remainder(phase + c["kp"] * err + integ, c["m"])
+        psi = torch.remainder(psi + c["w"], c["m"])
+        arg = psi + phase
+        fb_i, fb_q = torch.cos(arg), torch.sin(arg)
+        outs_i[t] = torch.cos(arg * c["scale"] + c["adj"])
+        outs_q[t] = torch.sin(arg * c["scale"] + c["adj"])
+    nco_i = torch.cat([state.nco_last[..., None], outs_i.movedim(0, -1)],
+                      dim=-1)
+    nco_q = torch.cat([state.nco_q_last[..., None], outs_q.movedim(0, -1)],
+                      dim=-1)
+    new_state = PllState(integ, phase, psi, fb_i, fb_q, nco_i[..., -1],
+                         nco_q[..., -1])
+    return nco_i, nco_q, new_state
+
+
+def pll_block(x: torch.Tensor, state: PllState, params: PllParams,
+              use_atan2: bool = False
               ) -> tuple[torch.Tensor, torch.Tensor, PllState]:
     """Run one PLL over one block.
 
     Returns (nco_i, nco_q, new_state); the NCO arrays have ``N+1`` entries
     with index 0 the carried previous output, so mixers use ``nco[..., :-1]``
     as the reference does.  ``x`` (..., N) may carry batch dims, and then
-    every state leaf has shape (...)."""
+    every state leaf has shape (...).
+
+    ``use_atan2=True`` runs the reference's literal recurrence instead of
+    the transcendental-free one, with the same carries, for A/B validation
+    as in the JAX package: plain PyTorch on any device, never a kernel (K2
+    and K3 compute the transcendental-free form)."""
     c = {k: v[0] for k, v in loop_constants((params,), x.dtype,
                                             x.device).items()}
-    return _run(x, state, c)
+    return (_run_atan2 if use_atan2 else _run)(x, state, c)
 
 
 def pll_block_fused(x: torch.Tensor, state: PllState,
