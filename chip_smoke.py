@@ -113,6 +113,15 @@ Phases, one line of output each (any failure raises and exits non-zero):
    (plain PyTorch, no kernel) over two chained 2,000-sample blocks of
    tests/test_ops.py's 19,020 Hz tone against K2's path
    (``pll_cuda.pll_block_kernel``) at 5e-3.
+8. ``bench_torch.py`` at a reduced size in process (``bench_torch.bench``:
+   mode 0 only, the single stream, dispatch latency and a sweep of C=512,
+   16 blocks a call, 2 timed calls), with its gates (every arm finite, row
+   0 of the batch against the single stream at 1e-5 and 5e-3, each
+   regime's kernel launches), the launch counts set to 0 just before and
+   read just after (K1, K2 at C=1, K3 at C=512); prints the card's name
+   and power limit, then the bench's one-line record, and fails unless its
+   value is finite and positive.  Its detail goes to
+   ``build/chip_smoke/bench_detail.json``.
 
 A kernel's bound is the larger of its bytes over 3.35 TB/s and its fp32
 operations over 67 TFLOP/s (the H100 SXM's published peaks), and for the
@@ -129,6 +138,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 import time
@@ -138,6 +148,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+import bench_torch
 import sdr_tpu_torch
 from sdr_tpu_torch import cli, stimulus
 from sdr_tpu_torch import config as cfg
@@ -1926,6 +1937,39 @@ def phase_scan_and_zero_blocks(smi: str, capture) -> None:
         _zero_blocks(), _pll_atan2())))
 
 
+# --- phase 8 ----------------------------------------------------------------
+
+BENCH_CHANNELS = [512]
+BENCH_BLOCKS = 16
+BENCH_REPS = 2
+
+
+def phase_bench(smi: str) -> None:
+    """Phase 8: ``bench_torch.bench`` at a reduced size, mode 0 only; its
+    gates raise."""
+    _reset_counts()
+    record, detail = bench_torch.bench(
+        "cuda", BENCH_BLOCKS, BENCH_REPS, BENCH_CHANNELS, modes=[0],
+        c_mode=128, latency_calls=bench_torch.LATENCY_CALLS)
+    launches = _read_counts("bench_torch", ("fir_frontend_u8", "pll_angles",
+                                            "pll_mixer"))
+    if not (math.isfinite(record["value"]) and record["value"] > 0):
+        raise AssertionError(f"bench_torch: value {record['value']}")
+    WORK.mkdir(parents=True, exist_ok=True)
+    (WORK / "bench_detail.json").write_text(json.dumps(detail, indent=2))
+    row = detail["aggregate_sweep"][0]
+    print(f"bench_torch: {BENCH_BLOCKS} blocks a call, best of "
+          f"{BENCH_REPS}: single stream {detail['single_stream_msps']:.1f} "
+          "MS/s ("
+          f"{detail['single_stream_ms_per_block_device']:.4f} ms/blk), "
+          f"C={row['channels']} {row['msps']:.1f} MS/s "
+          f"({row['ms_per_block']:.4f} ms/blk), row 0 max abs err "
+          f"{row['row0_max_abs_err']}; dispatch latency "
+          f"{detail['dispatch_latency_ms']:.4f} ms; launches {launches}")
+    print(f"bench_torch card: {smi}")
+    print(f"bench_torch record: {json.dumps(record)}")
+
+
 def main() -> int:
     smi = phase_card_and_build()
     rng = np.random.default_rng(SEED)
@@ -1946,6 +1990,7 @@ def main() -> int:
     phase_golden()
     phase_profile(smi)
     phase_scan_and_zero_blocks(smi, main_path["capture"])
+    phase_bench(smi)
     errs = {"fir_frontend_u8": k1["max_abs_err"],
             "pll_angles": pll["max_abs_err"],
             "pll_mixer": pll["max_abs_err"],

@@ -5,9 +5,9 @@
   machine with the GPU has no JAX, and the port keeps its own copies (its
   golden receiver and utilities among them).  Checked in a fresh
   interpreter whose import system refuses both (for the port, the profile
-  script and ``chip_smoke.py``), and by
-  scanning the imports of the port, ``chip_smoke.py``, the card-only
-  tests and the port's scripts (``scripts/torch_*.py``).
+  script, ``chip_smoke.py`` and ``bench_torch.py``), and by
+  scanning the imports of the port, ``chip_smoke.py``, ``bench_torch.py``,
+  the card-only tests and the port's scripts (``scripts/torch_*.py``).
 * A kernel wrapper handed a CUDA tensor launches its kernel or raises: no
   kernel module catches an exception and falls back to the plain version,
   and a block program whose capture fails re-raises instead of running the
@@ -83,9 +83,9 @@ def test_guards_cover_the_newest_modules():
 
 
 def test_scripts_and_smoke_load_no_jax():
-    """The profile script and ``chip_smoke.py`` import (their bodies run
-    only as ``__main__``) in an interpreter that refuses jax and
-    ``sdr_tpu``."""
+    """The profile script, ``chip_smoke.py`` and ``bench_torch.py`` import
+    (their bodies run only as ``__main__``) in an interpreter that refuses
+    jax and ``sdr_tpu``."""
     code = f"""
 import importlib, sys
 sys.path.insert(0, {str(ROOT / "scripts")!r})
@@ -101,7 +101,7 @@ class Refuse:
         return None
 
 sys.meta_path.insert(0, Refuse())
-for mod in {SCRIPTS!r} + ("chip_smoke",):
+for mod in {SCRIPTS!r} + ("chip_smoke", "bench_torch"):
     importlib.import_module(mod)
 assert not [m for m in sys.modules if refused(m)]
 print("ok")
@@ -113,7 +113,7 @@ print("ok")
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py", "tests/test_torch_cuda.py",
+    + ["chip_smoke.py", "bench_torch.py", "tests/test_torch_cuda.py",
        "tests/torch_multiprocess.py"]
     + sorted(str(p.relative_to(ROOT))
              for p in (ROOT / "scripts").glob("torch_*.py")))
