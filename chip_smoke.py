@@ -275,7 +275,8 @@ def device_ms(fn, reps: int, match: str, before=None) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == DeviceType.CUDA and match in e.name
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and match in e.name
                ) / reps / 1e3
 
 
@@ -1272,7 +1273,10 @@ def _profiled_block(fn, reps: int) -> dict:
             fn()
         torch.cuda.synchronize()
     events = prof.events()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    # a span's device side (``utils.profiling.span``) is an annotation
+    # over the kernels it launched, not work
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation]
     host = [e for e in events if e.device_type == DeviceType.CPU
             and e.name in LAUNCH_CALLS]
     return {"busy_ms": _busy_ms([(e.time_range.start, e.time_range.end)

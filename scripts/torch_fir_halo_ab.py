@@ -110,7 +110,10 @@ def profiled(fn, reps: int, match: str) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a span's device side (``utils.profiling.span``) is an annotation
+    # over the kernels it launched, not work
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation]
     span = lambda es: busy_ms([(e.time_range.start, e.time_range.end)
                                for e in es])
     return {"busy_ms": span(dev) / reps,

@@ -104,7 +104,10 @@ def block(rng, c: int, reps: int, profiled: int) -> dict:
         for _ in range(profiled):
             r.process(blk)
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a span's device side (``utils.profiling.span``) is an annotation
+    # over the kernels it launched, not work
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation]
     busy = busy_ms([(e.time_range.start, e.time_range.end) for e in dev])
     pll = busy_ms([(e.time_range.start, e.time_range.end) for e in dev
                    if "pll_kernel" in e.name])

@@ -321,8 +321,11 @@ def _device_events(fn: Callable) -> list:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
+        # a span's device side (``utils.profiling.span``) is an
+        # annotation over the kernels it launched, not work
         events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation]
         if events:
             return events
     return []

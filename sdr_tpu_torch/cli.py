@@ -22,6 +22,12 @@ host memory without blocking, on the stream behind the replay; up to
 ``--inflight`` blocks are in flight, and each is written once its CUDA
 event has completed, strictly in block order, so the output bytes do not
 depend on ``--inflight``.
+
+``--trace DIR`` runs the decode loop under ``utils.profiling.trace_to``
+and prints the Chrome trace's path: the port's ``sdr.*`` spans (the block
+program's inputs, load, replay and copy-out) beside the device's kernels
+and copies.  ``--stats`` adds the block programs' counts of the run
+(``models.program.counts``).
 """
 
 from __future__ import annotations
@@ -41,9 +47,10 @@ import torch
 from sdr_tpu_torch import config as cfg
 from sdr_tpu_torch import io as sio
 from sdr_tpu_torch import checkpoint
-from sdr_tpu_torch.models import rds_decode
+from sdr_tpu_torch.models import program, rds_decode
 from sdr_tpu_torch.models import receiver as rx
 from sdr_tpu_torch.models.channelizer import Channelizer, ChannelizerState
+from sdr_tpu_torch.utils import profiling
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,7 +82,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--block-size", type=int, default=None,
                    help="raw u8 samples per block (default per-mode)")
     p.add_argument("--stats", action="store_true",
-                   help="print throughput stats to stderr at EOF")
+                   help="print throughput stats and the block programs' "
+                        "counts to stderr at EOF")
+    p.add_argument("--trace", metavar="DIR",
+                   help="trace the decode loop with torch.profiler (the "
+                        "port's sdr.* spans beside the device's kernels and "
+                        "copies) into a Chrome trace under DIR")
     p.add_argument("--inflight", type=int,
                    default=int(os.environ.get("SDR_TPU_CLI_INFLIGHT", "8")),
                    help="blocks in flight on the device->host copy "
@@ -164,6 +176,22 @@ def _raw_blocks(stream, block_size: int):
         return sio.iter_iq_blocks_raw(stream, block_size)
 
 
+def _traced(stack: contextlib.ExitStack, args) -> str | None:
+    """With ``--trace DIR``: what follows, until ``stack`` closes, runs
+    under ``profiling.trace_to(DIR)``; returns the trace's path."""
+    return (stack.enter_context(profiling.trace_to(args.trace))
+            if args.trace else None)
+
+
+def _counts_line(since: dict) -> str:
+    """``--stats``' line of the block programs' counts during the run
+    (``models.program.counts``): more captures than the programs have
+    shapes means a graph was built again."""
+    return "programs: " + ", ".join(
+        f"{k} {program.counts[k] - since[k]}"
+        for k in ("captures", "warm_ups", "replays", "blocks"))
+
+
 def _warn_algo_mismatch(rds_meta: dict, requested: str) -> None:
     """A checkpoint pins its RDS algorithm (the carry layouts differ)."""
     stored = rds_meta.get("algo")
@@ -238,6 +266,8 @@ def _main_wideband(args, device: torch.device,
             f"{args.output}_{k}.wav", mc.audio_fs,
             channels=2 if args.stereo else 1)) for k in range(len(offsets))]
         fetcher = _Fetcher(args.inflight, emit)
+        counts0 = dict(program.counts)
+        trace_path = _traced(stack, args)
         t0 = time.time()
         while True:
             raw = in_stream.read(bs_wide)
@@ -296,6 +326,9 @@ def _main_wideband(args, device: torch.device,
         print(f"{n_blocks} wideband blocks, {len(offsets)} stations, "
               f"{pairs / 1e6:.2f} M IQ pairs in {dt:.2f}s = "
               f"{pairs / dt / 1e6:.1f} MS/s", file=sys.stderr)
+        print(_counts_line(counts0), file=sys.stderr)
+    if trace_path:
+        print(f"trace: {trace_path}", file=sys.stderr)
     return 0
 
 
@@ -364,6 +397,8 @@ def _main_single(args, device: torch.device,
                 sio.stdout_binary() if args.output == "-" else
                 stack.enter_context(open(args.output, "wb")))
         fetcher = _Fetcher(args.inflight, emit)
+        counts0 = dict(program.counts)
+        trace_path = _traced(stack, args)
         t0 = time.time()
         for blk in _raw_blocks(in_stream, bs):
             out = receiver.process(blk)
@@ -416,6 +451,9 @@ def _main_single(args, device: torch.device,
         print(f"{n_blocks} blocks, {pairs / 1e6:.2f} M IQ pairs in "
               f"{dt:.2f}s = {pairs / dt / 1e6:.1f} MS/s "
               f"({pairs / mc.rf_fs / dt:.1f}x real-time)", file=sys.stderr)
+        print(_counts_line(counts0), file=sys.stderr)
+    if trace_path:
+        print(f"trace: {trace_path}", file=sys.stderr)
     return 0
 
 

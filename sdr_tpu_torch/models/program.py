@@ -61,6 +61,15 @@ The kernel wrappers count a launch when their kernel is launched; the
 capture records them, so each replay adds its graph's launches to the
 same counts (``COUNTED``): a chunk graph's replay adds K blocks' launches.
 
+While a ``torch.profiler`` profile records, each call marks its stages
+as sibling spans (``utils.profiling.span``): ``sdr.program.inputs`` (the
+key, the params' versions, the state slot and a foreign state's copy),
+``sdr.program.capture`` (a new key's entry, warm-up and capture),
+``sdr.program.staging_wait`` and ``sdr.program.stage`` (a host scan input
+on the card), ``sdr.program.load``, ``sdr.program.replay`` and
+``sdr.program.copy_out``.  No span lies inside the step, which a graph
+replays without host code.
+
 On the CPU the bookkeeping is the same with the capture replaced by a
 direct call of ``step`` on the static buffers (K chained calls for a
 scan): keys, copy-in of params, input and a foreign state, donation into
@@ -78,6 +87,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from sdr_tpu_torch.ops import fir_decim, fir_frontend, pll_cuda
+from sdr_tpu_torch.utils.profiling import span
 
 #: the kernel wrappers whose launches a graph holds (each has a
 #: ``launches`` count); K6 runs outside the graphs, once per call
@@ -226,18 +236,22 @@ class _Entry:
         if x is self.x:
             return
         if self.blocks is None or not self.x.is_cuda or x.is_cuda:
-            self.x.copy_(x, non_blocking=True)
+            with span("sdr.program.load"):
+                self.x.copy_(x, non_blocking=True)
             return
         if self.staging is None:
             flat, view = _blocks_buffer(self.blocks, self.x.shape[1:],
                                         self.x.dtype, "cpu", pin=True)
             self.staging = (flat, view, torch.cuda.Event())
         else:
-            self.staging[2].synchronize()
+            with span("sdr.program.staging_wait"):
+                self.staging[2].synchronize()
         flat, view, done = self.staging
-        view.copy_(x)
-        self.flat.copy_(flat, non_blocking=True)
-        done.record(torch.cuda.current_stream(self.x.device))
+        with span("sdr.program.stage"):
+            view.copy_(x)
+        with span("sdr.program.load"):
+            self.flat.copy_(flat, non_blocking=True)
+            done.record(torch.cuda.current_stream(self.x.device))
 
 
 class Program:
@@ -274,37 +288,47 @@ class Program:
         copied in or out.  What a step's own time is measured on
         (``scripts/torch_profile_stages.py``)."""
         entry = self._entries[key]
-        entry.run()
+        with span("sdr.program.replay"):
+            entry.run()
         counts["replays"] += 1
         counts["blocks"] += entry.blocks or 1
 
     def _run(self, x: torch.Tensor, params, state, blocks: int | None):
-        p_leaves, s_leaves = tree_leaves(params), tree_leaves(state)
-        dev = p_leaves[0].device
-        shape = tuple(x.shape) if blocks is None else tuple(x.shape[1:])
-        key = (shape, x.dtype, dev, _signature(p_leaves),
-               _signature(s_leaves), self.switches)
-        if blocks is not None:
-            key += (blocks,)
-        params_slot = self._params_in(dev, params, p_leaves)
-        state_slot = self._slot(self._states, dev, state, s_leaves)
-        copy_leaves(state_slot.bufs, s_leaves)
-        entry = self._entries.get(key)
-        if entry is None:
-            entry = self._entries[key] = _Entry(shape, x.dtype, dev, blocks)
-            entry.load(x)
-            try:
-                entry.run = self._capture(entry, params_slot, state_slot)
+        # the spans (utils.profiling.span) are siblings: a new key's load
+        # lies inside its capture
+        with span("sdr.program.inputs"):
+            p_leaves, s_leaves = tree_leaves(params), tree_leaves(state)
+            dev = p_leaves[0].device
+            shape = tuple(x.shape) if blocks is None else tuple(x.shape[1:])
+            key = (shape, x.dtype, dev, _signature(p_leaves),
+                   _signature(s_leaves), self.switches)
+            if blocks is not None:
+                key += (blocks,)
+            params_slot = self._params_in(dev, params, p_leaves)
+            state_slot = self._slot(self._states, dev, state, s_leaves)
+            copy_leaves(state_slot.bufs, s_leaves)
+            entry = self._entries.get(key)
+        fresh = entry is None
+        try:
+            if fresh:
+                with span("sdr.program.capture"):
+                    entry = self._entries[key] = _Entry(shape, x.dtype, dev,
+                                                        blocks)
+                    entry.load(x)
+                    entry.run = self._capture(entry, params_slot, state_slot)
+            else:
+                entry.load(x)
+            with span("sdr.program.replay"):
                 entry.run()
-            except BaseException:
-                del self._entries[key]
-                raise
-        else:
-            entry.load(x)
-            entry.run()
+        except BaseException:
+            if fresh:
+                self._entries.pop(key, None)
+            raise
         counts["replays"] += 1
         counts["blocks"] += blocks or 1
-        return copy_out(entry.out), state_slot.tree
+        with span("sdr.program.copy_out"):
+            out = copy_out(entry.out)
+        return out, state_slot.tree
 
     @staticmethod
     def _slot(slots: dict, dev: torch.device, tree, leaves: list) -> _Slot:

@@ -46,6 +46,8 @@ from sdr_tpu_torch.ops import pll as tpll
 from sdr_tpu_torch.ops import pll_cuda
 from sdr_tpu_torch.ops.fir import pin_fp32_matmul  # noqa: F401
 from sdr_tpu_torch.models import program
+from sdr_tpu_torch.utils import profiling
+from sdr_tpu_torch.utils.profiling import span
 
 _F32 = torch.float32
 
@@ -550,10 +552,12 @@ def run_blocks(iq_blocks: torch.Tensor, coeffs: ReceiverCoeffs,
     if fn is None:
         fn = make_block_fn(mc, stereo, with_rds, fused_mixer=fused_mixer)
     parts = []
-    for span in block_spans(iq_blocks.shape[0]):
-        out, state = run_span(fn, iq_blocks[span], coeffs, state)
+    for cut in block_spans(iq_blocks.shape[0]):
+        out, state = run_span(fn, iq_blocks[cut], coeffs, state)
         parts.append(out)
-    return map_state(lambda *arm: torch.cat(arm), *parts), state
+    with span("sdr.receiver.cat"):
+        outs = map_state(lambda *arm: torch.cat(arm), *parts)
+    return outs, state
 
 
 def run_blocks_scan(iq_blocks: torch.Tensor, coeffs: ReceiverCoeffs,
@@ -686,7 +690,11 @@ class Receiver:
         graph's static input (through pinned staging), and its outputs come
         back as host numpy arrays (``BlockOutputs`` stacked (blocks, ...,
         out_len)).  The state carries across chunks, so the chunks
-        concatenate bit-identically to one :meth:`run`."""
+        concatenate bit-identically to one :meth:`run`.  While a profile
+        records, each fetch first waits for the receiver's stream (span
+        ``sdr.receiver.wait``), so the trace tells the device's time apart
+        from the copy's (``sdr.receiver.fetch``); untraced, the first
+        ``.cpu()`` makes that wait itself, as it always has."""
         if block_size is None:
             block_size = self.mc.default_block_size(self.with_rds)
         if isinstance(iq, torch.Tensor):
@@ -697,4 +705,9 @@ class Receiver:
             chunk = self._as_input(iq[..., k0 * block_size: k1 * block_size],
                                    False)
             outs = self._run_blocks(chunk, k1 - k0, block_size)
-            yield map_state(lambda a: a.cpu().numpy(), outs)
+            with span("sdr.receiver.wait"):
+                if self.device.type == "cuda" and profiling.recording():
+                    torch.cuda.current_stream(self.device).synchronize()
+            with span("sdr.receiver.fetch"):
+                host = map_state(lambda a: a.cpu().numpy(), outs)
+            yield host

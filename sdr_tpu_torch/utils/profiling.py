@@ -10,6 +10,11 @@ and contracts:
 * ``trace_to(dir)`` — a ``torch.profiler`` trace of the CPU and, with a
   card, of the card, written under ``dir`` as a Chrome trace (the
   counterpart of ``jax.profiler.start_trace``).
+* ``span(name)`` — the port's own spans (``sdr.*``: the block program's
+  stages in ``models.program``, the streaming entry's in
+  ``models.receiver``): a ``record_function`` range while a profile
+  records, on the clock of the device activity it traces beside it; one
+  shared no-op context otherwise.
 * ``profile_stages`` — per-arm time by configuration deltas (front-end +
   mono, + stereo, + RDS): device time per block of the receiver's chunk
   program, replayed; per stage of the block,
@@ -26,6 +31,8 @@ import os
 import time
 from collections import defaultdict
 from typing import Iterator
+
+import torch
 
 from sdr_tpu_torch import config as cfg
 
@@ -57,13 +64,32 @@ class StageTimer:
         return "\n".join(lines)
 
 
+#: what :func:`span` returns while no profile records: no allocation, no
+#: clock read
+_OFF = contextlib.nullcontext()
+#: whether a ``torch.profiler`` profile records (the profiler's own flag)
+recording = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A span named ``name`` around the ``with`` block: while a
+    ``torch.profiler`` profile records (``trace_to``, the benchmark's
+    traced window), ``torch.profiler.record_function(name)``, a host event
+    that the profile puts beside the kernels and copies the block caused,
+    its parent the span that encloses it; while none records, one shared
+    no-op context, so an untraced run pays a flag check a span.  Never
+    inside a region under CUDA-graph capture: a replay runs no host code."""
+    if recording():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
 @contextlib.contextmanager
 def trace_to(log_dir: str) -> Iterator[str]:
     """Trace what runs inside the block with ``torch.profiler`` (CPU
     activity, and CUDA activity when there is a card) and write it as a
     Chrome trace (``chrome://tracing``, Perfetto) under ``log_dir``.
     Yields the trace's path, which exists once the block has ended."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -108,7 +134,6 @@ def profile_stages(mode: int = 0, n_blocks: int = 20, with_rds: bool = True,
     import statistics
 
     import numpy as np
-    import torch
 
     from sdr_tpu_torch.models import receiver as rx
     from sdr_tpu_torch.utils import synth

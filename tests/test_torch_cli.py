@@ -14,10 +14,13 @@ process.
   same tolerances.
 * Without a GPU, the port's CLI refuses to run unless given
   ``--device cpu``.
+* ``--trace DIR`` writes a Chrome trace holding the block program's
+  spans, and ``--stats`` prints the programs' counts.
 """
 
 import contextlib
 import io
+import json
 import re
 import subprocess
 import sys
@@ -201,3 +204,27 @@ def test_refuses_to_run_without_a_gpu(files):
     assert proc.returncode != 0
     assert "--device cpu" in proc.stderr
     assert not (files["dir"] / "none.pcm").exists()
+
+
+def test_trace_and_stats_read_the_spans_and_counts(files):
+    """``--trace DIR`` writes a Chrome trace of the decode loop holding
+    the block program's spans, one replay a block, and ``--stats`` prints
+    the programs' counts of the run, single-station and wideband (mono:
+    a CPU profile records each op of the PLLs' plain per-sample loops)."""
+    d = files["dir"]
+    for name, argv, blocks in (
+            ("st", ["--mode", "0", files["st"], "-o", str(d / "tr.pcm")], 6),
+            ("wb", ["--mode", "0", "--wav", "--wideband", "9600000", OFFSETS,
+                    files["wb"], "-o", str(d / "trw")], 6)):
+        err = _run(pcli, [*argv, "--stats", "--trace", str(d / name)])
+        path, = re.findall(r"^trace: (.+)$", err, re.M)
+        assert Path(path).parent == d / name
+        events = json.loads(Path(path).read_text())["traceEvents"]
+        names = [e.get("name") for e in events]
+        # the wideband loop replays the channelizer's program too
+        assert names.count("sdr.program.replay") >= blocks
+        assert names.count("sdr.program.copy_out") >= blocks
+        counts = dict(re.findall(r"(\w+) (\d+)", re.search(
+            r"^programs: (.+)$", err, re.M).group(1)))
+        assert set(counts) == {"captures", "warm_ups", "replays", "blocks"}
+        assert int(counts["replays"]) == names.count("sdr.program.replay")
