@@ -11,9 +11,10 @@ reference, and prints one JSON line last: ``correct``, ``attempted``,
 its per-layer metrics), ``device`` (with ``--trace 1`` also the device's
 busy seconds and the traced window), ``breakdown`` with ``--trace 1``,
 ``build`` (whether this run compiled the port's library, and the seconds
-its load took, both inside ``setup_s``), and last ``checks``: each number
-compared with its limit, which also close standard error.  Without a
-CUDA device it exits 2 and prints no result.
+its load took, both inside ``setup_s``), in a listener's cell ``stalls``
+(what each block later than its period met: ``harness/stalls.py``), and
+last ``checks``: each number compared with its limit, which also close
+standard error.  Without a CUDA device it exits 2 and prints no result.
 
 Everything a cell needs is found by the names in ``BENCHMARK.json``
 (``harness/cells.py``).
@@ -122,7 +123,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool) -> dict:
     _paths_and_caches()
     import torch
 
-    from harness import cells, check, drivers, stations, window
+    from harness import cells, check, drivers, stalls, stations, window
     from harness.trace import Trace, reader
     from sdr_tpu_torch.ops import fir_frontend, pll_cuda
 
@@ -190,6 +191,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool) -> dict:
         e2e = {"block_latency_p50_ms": window.percentile_ms(lat, 50),
                "block_latency_p95_ms": window.percentile_ms(lat, 95)}
         attempted, failed = len(lat), window.late(lat, res["period"])
+        met = stalls.summary(lat, res["late"], res["passes"], res["usage"],
+                             res["probe"])
+        print("stalls: " + json.dumps(met), file=sys.stderr)
     e2e["setup_s"] = setup_s
 
     dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -212,6 +216,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool) -> dict:
     out["card"] = _card()
     out["seed"] = seed
     out["build"] = built
+    if mix["driver"] == "listener":
+        out["stalls"] = met
     out["checks"] = {a: {k: v if not isinstance(v, float)
                          or math.isfinite(v) else repr(v)
                          for k, v in c.items()} for a, c in checks.items()}
