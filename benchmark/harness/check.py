@@ -24,6 +24,17 @@ near-zero input can round either way between float32 and float64: a
 sound run then departs for a burst of about two symbols, 1e-4 to 3e-4
 of the peak, which the percentile leaves alone and the widest gap's
 limit sits above.
+
+The pilot PLL's detector takes only the sign of its input too, and one
+decision taken the other way moves ``left`` and ``right`` by 4e-4 to
+7e-3 of the peak.  So these two arms are compared block by block
+against the nearest of the reference's base run and its branches
+(``harness/reference.py``): each the recurrence with one decision that
+float32 cannot resolve taken the other way, and admissible from the
+block of that decision on.  The nearest is the one whose widest gap on
+``left`` and ``right`` together is least; the statistic is then taken as
+ever, over the row, against the blocks so chosen, and over the base's
+peak.  Every other arm is compared against the base alone.
 """
 
 from __future__ import annotations
@@ -67,40 +78,103 @@ def statistic(diff: np.ndarray, name: str) -> float:
     return float(np.percentile(diff, float(name[1:])))
 
 
+def _have(got: list | None, i: int, want: np.ndarray) -> np.ndarray | None:
+    """Row ``i`` of the program's blocks of one arm, as many as ``want``
+    has, or None where the arm is missing, short, at another length or
+    not finite."""
+    if got is None or len(got) < len(want):
+        return None
+    have = np.stack([blk[i] for blk in got[: len(want)]]).astype(np.float64)
+    if have.shape != want.shape or not np.isfinite(have).all():
+        return None
+    return have
+
+
+def nearest(haves: dict, ref: dict, n: int) -> tuple[dict, list]:
+    """(want, matched): for each arm of ``haves`` the reference's blocks
+    0..n-1 it is compared against, and the (block, branch) pairs at which
+    ``left`` and ``right`` take a branch's blocks, being nearer to the
+    program's (``haves[arm]``, None where unreadable) than the base's and
+    every other admissible branch's."""
+    want = {a: ref[a][:n] for a in haves}
+    if any(haves.get(a) is None for a in reference.PILOT_ARMS):
+        return want, []
+    want.update({a: want[a].copy() for a in reference.PILOT_ARMS})
+    peak = {a: float(np.abs(want[a]).max()) or 1.0
+            for a in reference.PILOT_ARMS}
+    branches = ref["pilot"]["branches"]
+
+    def gap(k: int, blocks: dict) -> float:
+        return max(float(np.abs(haves[a][k] - blocks[a]).max()) / peak[a]
+                   for a in reference.PILOT_ARMS)
+    matched = []
+    for k in range(n):
+        best = gap(k, {a: want[a][k] for a in reference.PILOT_ARMS})
+        pick = None
+        for j, br in enumerate(branches):
+            i = k - br["block"]
+            if 0 <= i < len(br["left"]):
+                g = gap(k, {a: br[a][i] for a in reference.PILOT_ARMS})
+                if g < best:
+                    best, pick = g, j
+        if pick is not None:
+            br = branches[pick]
+            for a in reference.PILOT_ARMS:
+                want[a][k] = br[a][k - br["block"]]
+            matched.append((k, pick))
+    return want, matched
+
+
 def compare(arms: dict, refs: list[dict], last: list[int],
             numbers: dict[str, tuple[str, str]]) -> dict[str, float]:
     """Per number (arm, statistic): the statistic of |program -
     reference| over each row's compared blocks, over the reference's
-    largest magnitude there; the worst row.  ``arms[name]`` is a list of
-    (rows, length) blocks in stream order.  An arm missing, short, at
-    another length or not finite reads inf."""
-    out = {}
-    for name, (arm, stat) in numbers.items():
-        got = arms.get(arm)
-        worst = 0.0
-        for i, (ref, b) in enumerate(zip(refs, last)):
-            want = ref[arm][: b + 1]
-            if got is None or len(got) < b + 1:
-                worst = math.inf
-                break
-            have = np.stack([blk[i] for blk in got[: b + 1]])
-            if have.shape != want.shape:
-                worst = math.inf
-                break
-            diff = np.abs(have.astype(np.float64) - want)
-            if not np.isfinite(diff).all():
-                worst = math.inf
-                break
-            scale = float(np.abs(want).max()) or 1.0
-            worst = max(worst, statistic(diff, stat) / scale)
-        out[name] = worst
+    largest magnitude there; the worst row.  ``left`` and ``right`` are
+    compared against the nearest branch (:func:`nearest`).  ``arms[name]``
+    is a list of (rows, length) blocks in stream order.  An arm missing,
+    short, at another length or not finite reads inf."""
+    out = {name: 0.0 for name in numbers}
+    used = {arm for arm, _ in numbers.values()} | set(reference.PILOT_ARMS)
+    for i, (ref, b) in enumerate(zip(refs, last)):
+        haves = {a: _have(arms.get(a), i, ref[a][: b + 1])
+                 for a in used if a in ref}
+        want = nearest(haves, ref, b + 1)[0]
+        for name, (arm, stat) in numbers.items():
+            have = haves.get(arm)
+            if have is None:
+                out[name] = math.inf
+                continue
+            scale = float(np.abs(ref[arm][: b + 1]).max()) or 1.0
+            out[name] = max(out[name], statistic(np.abs(have - want[arm]),
+                                                 stat) / scale)
+    return out
+
+
+def branch_report(arms: dict, refs: list[dict], last: list[int],
+                  rows: list[int]) -> list[dict]:
+    """Per compared row: the ambiguous pilot decisions that the reference
+    found, the branches it followed and those it left out, and the
+    blocks at which left and right matched a branch rather than the base
+    ([block, the branch's block, its index in that block])."""
+    out = []
+    for i, (ref, b, r) in enumerate(zip(refs, last, rows)):
+        pilot = ref["pilot"]
+        haves = {a: _have(arms.get(a), i, ref[a][: b + 1])
+                 for a in reference.PILOT_ARMS}
+        matched = nearest(haves, ref, b + 1)[1]
+        br = pilot["branches"]
+        out.append({"row": r, "ambiguous": pilot["ambiguous"],
+                    "followed": len(br),
+                    "left_out": pilot["ambiguous"] - len(br),
+                    "matched": [[k, br[j]["block"], br[j]["index"]]
+                                for k, j in matched]})
     return out
 
 
 def reference_rows(ring: np.ndarray, rows: list[int], last: list[int],
-                   cfg: dict, workers: int) -> list[dict]:
+                   cfg: dict, workers: int, **kw) -> list[dict]:
     return reference.run_rows([ring[r] for r in rows], cfg,
-                              [b + 1 for b in last], workers)
+                              [b + 1 for b in last], workers, **kw)
 
 
 def judge(values: dict[str, float], limit: dict[str, dict]

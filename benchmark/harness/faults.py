@@ -16,7 +16,14 @@ program's call that carries the state from one replay to the next):
 - ``rds_pll_reset`` and ``pilot_pll_reset``: one PLL's carried state
   dropped (put back to its start) once, at the call that begins at the
   ring's first wrap, which in a monitor is also a chunk boundary of
-  ``iter_run``: the state handed across that boundary, and nothing else.
+  ``iter_run``: the state handed across that boundary, and nothing else;
+- ``pilot_sign_flip``: once a block, in every channel, the pilot PLL's
+  input negated at the sample where its magnitude is largest: a decision
+  taken the other way, as float32 may take one where the input is near
+  zero, but at a sample that no rounding can flip.
+
+:func:`pilot_input_hook` is also how ``calibrate.py`` reads the program's
+own pilot input.
 """
 
 from __future__ import annotations
@@ -98,6 +105,37 @@ def _pll_reset(field: str):
     return plant
 
 
+def pilot_input_hook(monkeypatch, fn) -> None:
+    """Every call of the port's PLL kernels (K3's and K2's wrappers,
+    which every path of the block step calls) hands its pilot PLL's input
+    (..., N) to ``fn`` and runs on what ``fn`` returns."""
+    from sdr_tpu_torch import config
+    from sdr_tpu_torch.ops import pll_cuda
+
+    def wrap(kernel):
+        def hooked(x, *args):
+            for k, p in enumerate(args[-1]):
+                if p.freq == config.PILOT_FREQ_HZ:
+                    xk = x[..., k, :]
+                    y = fn(xk)
+                    if y is not xk:
+                        x = x.clone()
+                        x[..., k, :] = y
+            return kernel(x, *args)
+        return hooked
+    for name in ("pll_mixer_fused_kernel", "pll_block_fused_kernel"):
+        monkeypatch.setattr(pll_cuda, name, wrap(getattr(pll_cuda, name)))
+
+
+def _flip_largest(x: torch.Tensor) -> torch.Tensor:
+    at = x.abs().argmax(dim=-1, keepdim=True)
+    return x.scatter(-1, at, -x.gather(-1, at))
+
+
+def _pilot_sign_flip(monkeypatch, mix):
+    pilot_input_hook(monkeypatch, _flip_largest)
+
+
 FAULTS = {
     "state_unchanged": _step_fault(_state_unchanged),
     "half_batch": _step_fault(_half_batch),
@@ -105,4 +143,5 @@ FAULTS = {
     "answer_altered": _step_fault(_answer_altered),
     "rds_pll_reset": _pll_reset("rds_pll"),
     "pilot_pll_reset": _pll_reset("pilot_pll"),
+    "pilot_sign_flip": _pilot_sign_flip,
 }

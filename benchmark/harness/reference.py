@@ -8,6 +8,20 @@ mode from the configuration file, designs every filter itself and starts
 from a zero state, so that it takes nothing that the program made: only
 the same input bytes.  It imports numpy alone.
 
+The pilot PLL's detector ``atan2(-v q, v i)`` turns half a circle with
+the sign of its input ``v``, and where ``v`` passes within float32's
+rounding of zero a sound float32 receiver may take that decision the
+other way.  So the reference also returns, per row, a branch for each
+such decision: ``|v[n]| < TAU * s[n]``, where ``s[n] = sum_k |h[k]|
+|fm[n-k]|`` is the scale on which ``v`` is rounded (the same
+overlap-save state as ``v``).  A branch is the same recurrence with that
+one decision taken the other way (``v[n]``'s sign flipped for the
+detector alone), rerun from the state saved at the start of its block
+and followed until it has locked back onto the base run (``left`` and
+``right`` within ``LOCKED`` of their peak for a whole block) or to the
+row's last block; at most ``MAX_BRANCHES`` a row, those with the
+smallest ``|v|/s``.  The RDS PLL is not branched.
+
 The PLL is a per-sample Python loop, the literal atan2 recurrence, so a
 block costs tens of milliseconds: :func:`run_rows` spreads the compared
 rows over worker processes, each a plain child started and waited for
@@ -28,6 +42,20 @@ from pathlib import Path
 import numpy as np
 
 ARMS = ("fm_demod", "mono", "left", "right", "rds_symbols")
+#: the arms that the pilot PLL feeds, which a branch carries
+PILOT_ARMS = ("left", "right")
+
+#: a pilot decision is ambiguous where |v| < TAU * s: 4x the widest
+#: |v32 - v64| / s that the program's own pilot input read on the card,
+#: rounded up to a power of two (``calibrate.py --pilot-input``)
+TAU = 2.0 ** -11
+#: the most branches followed in a row (the smallest |v| / s first)
+MAX_BRANCHES = 8
+#: a branch has locked back onto the base run once, for a whole block, its
+#: left and right lie within this share of their peak of the base's:
+#: float64's own rounding of the NCO's angle (about 3e5 rad late in a
+#: row) leaves 1e-12 to 1e-11 between them after the loop has settled
+LOCKED = 1e-9
 
 _CP, _CI = 2.666, 3.555          # PI loop filter for damping 1/sqrt(2)
 
@@ -205,9 +233,11 @@ def _audio(x, h, state, cfg):
     return fir_decim(x, h, state, cfg["audio_decim"])
 
 
-def process_block(iq: np.ndarray, h: dict, s: dict, cfg: dict) -> dict:
+def process_block(iq: np.ndarray, h: dict, s: dict, cfg: dict,
+                  flip: int = -1) -> dict:
     """One block of normalized float64 I/Q (interleaved); updates ``s`` in
-    place and returns the arms."""
+    place and returns the arms.  ``flip``: the index in the block of the
+    pilot PLL's decision taken the other way (-1: none)."""
     i_ds, s["rf_i"] = fir_decim(iq[0::2], h["rf"], s["rf_i"], cfg["rf_decim"])
     q_ds, s["rf_q"] = fir_decim(iq[1::2], h["rf"], s["rf_q"], cfg["rf_decim"])
     fm, s["demod"] = fm_demod_quad(i_ds, q_ds, s["demod"])
@@ -215,6 +245,8 @@ def process_block(iq: np.ndarray, h: dict, s: dict, cfg: dict) -> dict:
     mono, s["mono_fir"] = _audio(delayed, h["audio"], s["mono_fir"], cfg)
     st_filt, s["stereo_bpf"] = fir_decim(fm, h["stereo"], s["stereo_bpf"], 1)
     pi_filt, s["pilot_bpf"] = fir_decim(fm, h["pilot"], s["pilot_bpf"], 1)
+    if flip >= 0:
+        pi_filt[flip] = -pi_filt[flip]
     nco, s["pilot_pll"] = fm_pll(pi_filt, cfg["pilot_hz"], cfg["if_fs"],
                                  s["pilot_pll"], nco_scale=2.0)
     st_final, s["stereo_fir"] = _audio(nco[:-1] * st_filt * 2.0, h["audio"],
@@ -240,27 +272,91 @@ def process_block(iq: np.ndarray, h: dict, s: dict, cfg: dict) -> dict:
     return out
 
 
-def run_row(row: np.ndarray, cfg: dict, n_blocks: int) -> dict:
+def _block(row: np.ndarray, k: int, cfg: dict) -> np.ndarray:
+    """Stream block ``k`` of a row read as a ring, normalized."""
+    bs = cfg["block_bytes"]
+    b = k % (len(row) // bs)
+    return (row[b * bs:(b + 1) * bs].astype(np.float64) - 128.0) / 128.0
+
+
+def _copy_state(s: dict) -> dict:
+    return {k: v.copy() if isinstance(v, np.ndarray) else list(v)
+            for k, v in s.items()}
+
+
+def pilot_input(before: dict, fm: np.ndarray, h: dict
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """(v, s) of one block: the pilot PLL's input, as ``process_block``
+    makes it from the state ``before`` the block and its ``fm``, and the
+    scale on which float32 rounds it, sum_k |h[k]| |fm[n-k]|."""
+    xc = np.concatenate([before["pilot_bpf"], fm])
+    return (np.convolve(xc, h["pilot"], mode="valid"),
+            np.convolve(np.abs(xc), np.abs(h["pilot"]), mode="valid"))
+
+
+def _follow(row, cfg, h, starts, base, block: int, index: int) -> dict:
+    """The branch that takes the pilot decision at ``index`` of ``block``
+    the other way: its left and right from that block on, until it has
+    locked back onto ``base`` or the row ends."""
+    s = _copy_state(starts[block])
+    peak = {a: float(np.abs(base[a]).max()) or 1.0 for a in PILOT_ARMS}
+    got = {a: [] for a in PILOT_ARMS}
+    for k in range(block, len(starts)):
+        out = process_block(_block(row, k, cfg), h, s, cfg,
+                            index if k == block else -1)
+        if k > block and all(np.abs(out[a] - base[a][k]).max()
+                             <= LOCKED * peak[a] for a in PILOT_ARMS):
+            break
+        for a in PILOT_ARMS:
+            got[a].append(out[a])
+    return {"block": block, "index": index,
+            **{a: np.stack(v) for a, v in got.items()}}
+
+
+def run_row(row: np.ndarray, cfg: dict, n_blocks: int, tau: float = TAU,
+            flip: tuple[int, int] | None = None,
+            keep_pilot: bool = False) -> dict:
     """Blocks 0..n_blocks-1 of one channel's stream, the row read as a
     ring (block k is ring block k mod its length), from a zero state;
-    each arm stacked (n_blocks, length)."""
-    bs = cfg["block_bytes"]
-    ring_blocks = len(row) // bs
+    each arm stacked (n_blocks, length).  Under ``"pilot"``: the
+    ambiguous pilot decisions found at ``tau`` (``"ambiguous"``) and the
+    branches followed (``"branches"``: each its block, its index in the
+    block, its ``"ratio"`` |v|/s, and its left and right from that block
+    on); with ``keep_pilot`` also every block's ``"v"`` and ``"s"``.
+    ``flip`` (block, index): that pilot decision taken the other way in
+    this run itself."""
     h, s = design(cfg), init_state(cfg)
     outs = {a: [] for a in ARMS}
+    starts, found, vs, ss = [], [], [], []
     for k in range(n_blocks):
-        b = k % ring_blocks
-        iq = (row[b * bs:(b + 1) * bs].astype(np.float64) - 128.0) / 128.0
-        for a, y in process_block(iq, h, s, cfg).items():
+        starts.append(_copy_state(s))
+        out = process_block(_block(row, k, cfg), h, s, cfg,
+                            flip[1] if flip and flip[0] == k else -1)
+        for a, y in out.items():
             outs[a].append(y)
-    return {a: np.stack(v) for a, v in outs.items() if v}
+        v, sc = pilot_input(starts[k], out["fm_demod"], h)
+        ratio = np.abs(v) / np.where(sc > 0, sc, 1.0)
+        found += [(ratio[n], k, int(n))
+                  for n in np.flatnonzero(np.abs(v) < tau * sc)]
+        if keep_pilot:
+            vs.append(v)
+            ss.append(sc)
+    arms = {a: np.stack(v) for a, v in outs.items() if v}
+    found.sort()
+    pilot = {"ambiguous": len(found), "branches": [
+        {**_follow(row, cfg, h, starts, arms, k, n), "ratio": float(r)}
+        for r, k, n in found[:MAX_BRANCHES]]}
+    if keep_pilot:
+        pilot.update(v=np.stack(vs), s=np.stack(ss))
+    return {**arms, "pilot": pilot}
 
 
 def _worker() -> None:
-    """A worker's body: (row, cfg, n_blocks) pickled on standard input,
-    :func:`run_row`'s arms pickled on standard output."""
-    row, cfg, n_blocks = pickle.load(sys.stdin.buffer)
-    pickle.dump(run_row(row, cfg, n_blocks), sys.stdout.buffer,
+    """A worker's body: (row, cfg, n_blocks, keyword arguments) pickled
+    on standard input, :func:`run_row`'s result pickled on standard
+    output."""
+    row, cfg, n_blocks, kw = pickle.load(sys.stdin.buffer)
+    pickle.dump(run_row(row, cfg, n_blocks, **kw), sys.stdout.buffer,
                 protocol=pickle.HIGHEST_PROTOCOL)
     sys.stdout.buffer.flush()
 
@@ -272,11 +368,12 @@ _WORKER = [sys.executable, "-P", "-c",
            "from harness.reference import _worker; _worker()"]
 
 
-def _run_in_child(row: np.ndarray, cfg: dict, n_blocks: int) -> dict:
+def _run_in_child(row: np.ndarray, cfg: dict, n_blocks: int,
+                  kw: dict) -> dict:
     """:func:`run_row` in a child process that has ended when this
     returns (``subprocess.run`` kills and waits for it on any way out)."""
     out = subprocess.run(
-        _WORKER, input=pickle.dumps((row, cfg, n_blocks),
+        _WORKER, input=pickle.dumps((row, cfg, n_blocks, kw),
                                     protocol=pickle.HIGHEST_PROTOCOL),
         stdout=subprocess.PIPE, check=False)
     if out.returncode != 0:
@@ -285,13 +382,13 @@ def _run_in_child(row: np.ndarray, cfg: dict, n_blocks: int) -> dict:
 
 
 def run_rows(rows: list[np.ndarray], cfg: dict, n_blocks: list[int],
-             workers: int) -> list[dict]:
-    """:func:`run_row` for each row, over up to ``workers`` child
-    processes (one: in this process); every child has ended when this
-    returns, and one that fails raises here."""
+             workers: int, **kw) -> list[dict]:
+    """:func:`run_row` (with keyword arguments ``kw``) for each row, over
+    up to ``workers`` child processes (one: in this process); every child
+    has ended when this returns, and one that fails raises here."""
     if workers <= 1 or len(rows) == 1:
-        return [run_row(r, cfg, n) for r, n in zip(rows, n_blocks)]
+        return [run_row(r, cfg, n, **kw) for r, n in zip(rows, n_blocks)]
     with concurrent.futures.ThreadPoolExecutor(
             min(workers, len(rows))) as pool:
         return list(pool.map(_run_in_child, rows, [cfg] * len(rows),
-                             n_blocks))
+                             n_blocks, [kw] * len(rows)))

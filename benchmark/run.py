@@ -12,7 +12,9 @@ its per-layer metrics), ``device`` (with ``--trace 1`` also the device's
 busy seconds and the traced window), ``breakdown`` with ``--trace 1``,
 ``build`` (whether this run compiled the port's library, and the seconds
 its load took, both inside ``setup_s``), in a listener's cell ``stalls``
-(what each block later than its period met: ``harness/stalls.py``), and
+(what each block later than its period met: ``harness/stalls.py``),
+``pilot_branches`` (per compared row, the pilot PLL's ambiguous decisions
+and the blocks that matched a branch of them: ``harness/check.py``), and
 last ``checks``: each number compared with its limit, which also close
 standard error.  Without a CUDA device it exits 2 and prints no result.
 
@@ -167,12 +169,16 @@ def run(workload: str, seed: int, seconds: float, trace: bool) -> dict:
     torch.cuda.empty_cache()
 
     limit = check.limits(workload)
+    t_ref = time.perf_counter()
     refs = check.reference_rows(ring, rows, last, cfg,
                                 mix["reference_workers"])
     values = check.compare(kept.arms, refs, last,
                            {n: (v["arm"], v["statistic"])
                             for n, v in limit.items()})
     correct, checks = check.judge(values, limit)
+    branches = check.branch_report(kept.arms, refs, last, rows)
+    print(f"reference and check: {time.perf_counter() - t_ref:.3f} s; "
+          "pilot branches: " + json.dumps(branches), file=sys.stderr)
 
     if mix["driver"] == "monitor":
         print("chunk seconds: "
@@ -218,6 +224,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool) -> dict:
     out["build"] = built
     if mix["driver"] == "listener":
         out["stalls"] = met
+    out["pilot_branches"] = branches
     out["checks"] = {a: {k: v if not isinstance(v, float)
                          or math.isfinite(v) else repr(v)
                          for k, v in c.items()} for a, c in checks.items()}

@@ -40,9 +40,15 @@ def test_workers_match_this_process_and_have_all_ended():
     assert len(got) == len(want) == 3
     for g, w, n in zip(got, want, n_blocks):
         assert sorted(g) == sorted(w)
-        for arm in w:
+        for arm in set(w) & set(reference.ARMS):
             assert g[arm].shape[0] == n
             np.testing.assert_array_equal(g[arm], w[arm])
+        assert g["pilot"]["ambiguous"] == w["pilot"]["ambiguous"]
+        assert len(g["pilot"]["branches"]) == len(w["pilot"]["branches"])
+        for gb, wb in zip(g["pilot"]["branches"], w["pilot"]["branches"]):
+            assert sorted(gb) == sorted(wb)
+            for key in wb:
+                np.testing.assert_array_equal(gb[key], wb[key])
 
 
 def test_a_child_still_alive_is_ended_before_the_result():

@@ -170,9 +170,10 @@ def test_a_planted_sleep_is_not_named_collector(listener_run):
 def test_listener_line_keeps_its_keys_and_values(on_the_cpu, small_cell,
                                                  monkeypatch):
     """The keys of the line are the ones it had, in their order, with
-    ``stalls`` before ``checks``; ``correct``, ``attempted``, ``failed``
-    and the metrics are what the window arithmetic gives on the
-    listener's own latencies, as before the record."""
+    ``stalls`` and ``pilot_branches`` before ``checks``; ``correct``,
+    ``attempted``, ``failed`` and the metrics are what the window
+    arithmetic gives on the listener's own latencies, as before the
+    record."""
     seen = {}
     real = drivers.DRIVERS["listener"]
 
@@ -185,7 +186,7 @@ def test_listener_line_keeps_its_keys_and_values(on_the_cpu, small_cell,
     out = on_the_cpu.run(WORKLOAD, SEED, 0.0, False)
     assert list(out) == ["correct", "attempted", "failed", "metrics",
                          "device", "card", "seed", "build", "stalls",
-                         "checks"]
+                         "pilot_branches", "checks"]
     lat = seen["latencies"]
     assert out["correct"] is True
     assert out["attempted"] == len(lat) == seen["blocks"]
