@@ -46,7 +46,6 @@ from sdr_tpu_torch.ops import pll as tpll
 from sdr_tpu_torch.ops import pll_cuda
 from sdr_tpu_torch.ops.fir import pin_fp32_matmul  # noqa: F401
 from sdr_tpu_torch.models import program
-from sdr_tpu_torch.utils import profiling
 from sdr_tpu_torch.utils.profiling import span
 
 _F32 = torch.float32
@@ -560,6 +559,30 @@ def run_blocks(iq_blocks: torch.Tensor, coeffs: ReceiverCoeffs,
     return outs, state
 
 
+#: what :meth:`Receiver.iter_run` fetched on the card: the spans of
+#: :func:`block_spans` whose outputs it copied asynchronously into pinned
+#: host memory, and their bytes.  On the CPU, where the outputs are host
+#: memory already, both stay 0.
+fetch_counts = {"pinned_fetches": 0, "fetched_bytes": 0}
+
+
+def reset_fetch_counts() -> None:
+    for k in fetch_counts:
+        fetch_counts[k] = 0
+
+
+def _pinned_like(span_outs: BlockOutputs, n_blocks: int) -> BlockOutputs:
+    """Host tensors (n_blocks, ..., out_len) of the arms' shapes and types
+    in ``span_outs`` (m, ..., out_len), every arm carved from one pinned
+    allocation of torch's caching host allocator."""
+    shapes = [(n_blocks,) + tuple(a.shape[1:]) for a in span_outs]
+    sizes = [math.prod(s) * a.element_size()
+             for s, a in zip(shapes, span_outs)]
+    flat = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=True)
+    return BlockOutputs(*[part.view(a.dtype).view(s) for part, a, s
+                          in zip(flat.split(sizes), span_outs, shapes)])
+
+
 def run_blocks_scan(iq_blocks: torch.Tensor, coeffs: ReceiverCoeffs,
                     state: ReceiverState, mode, stereo: bool = True,
                     with_rds: bool = False
@@ -614,7 +637,7 @@ class Receiver:
     :func:`make_block_fn`): on the card ``process`` a CUDA graph of the
     block, ``run`` and ``iter_run`` a graph of :data:`SCAN_BLOCKS` blocks
     per whole chunk and the block's graph for the rest
-    (:func:`run_blocks`).  The three interleave on one stream of blocks.  The
+    (:func:`block_spans`).  The three interleave on one stream of blocks.  The
     state is exposed for checkpoint/resume (``sdr_tpu_torch.convert``): it
     is the program's state buffers, which the next block overwrites in
     place, so read or clone it between blocks; a state assigned to it (a
@@ -657,16 +680,56 @@ class Receiver:
                                        self.coeffs, self.state)
         return out
 
+    @staticmethod
+    def _blocks(iq: torch.Tensor, n_blocks: int,
+                block_size: int) -> torch.Tensor:
+        # the block-major view; each span of it is copied straight into the
+        # program's static input, from the host or the device
+        return iq[..., : n_blocks * block_size].reshape(
+            iq.shape[:-1] + (n_blocks, block_size)).movedim(-2, 0)
+
     def _run_blocks(self, iq: torch.Tensor, n_blocks: int,
                     block_size: int) -> BlockOutputs:
-        # the block-major view; run_blocks copies each chunk of it straight
-        # into the program's static input, from the host or the device
-        blocks = iq[..., : n_blocks * block_size].reshape(
-            iq.shape[:-1] + (n_blocks, block_size)).movedim(-2, 0)
-        outs, self.state = run_blocks(blocks, self.coeffs, self.state,
-                                      self.mc, self.stereo, self.with_rds,
+        outs, self.state = run_blocks(self._blocks(iq, n_blocks, block_size),
+                                      self.coeffs, self.state, self.mc,
+                                      self.stereo, self.with_rds,
                                       fn=self.program)
         return outs
+
+    @functools.cached_property
+    def _copy_stream(self) -> torch.cuda.Stream:
+        """The stream of :meth:`_run_pinned`'s copies to the host."""
+        return torch.cuda.Stream(self.device)
+
+    def _run_pinned(self, iq: torch.Tensor, n_blocks: int, block_size: int
+                    ) -> tuple[BlockOutputs, torch.cuda.Event]:
+        """The blocks through the program span by span, as
+        :func:`run_blocks` cuts them, each span's outputs copied without
+        blocking into its block slice of one pinned host buffer, on
+        :attr:`_copy_stream` behind the span: span j's copy to the host
+        overlaps span j+1's copy to the card and its graph, and no arm is
+        concatenated on the device.  Returns the host buffer's arms
+        (n_blocks, ..., out_len) and the event recorded after the last
+        copy; they hold the outputs once it has completed."""
+        blocks = self._blocks(iq, n_blocks, block_size)
+        compute, copy = (torch.cuda.current_stream(self.device),
+                         self._copy_stream)
+        host, held = None, []
+        for cut in block_spans(n_blocks):
+            out, self.state = run_span(self.program, blocks[cut],
+                                       self.coeffs, self.state)
+            if host is None:
+                host = _pinned_like(out, n_blocks)
+            copy.wait_stream(compute)
+            with torch.cuda.stream(copy):
+                for h, d in zip(host, out):
+                    h[cut].copy_(d, non_blocking=True)
+            held.append(out)    # the copy reads it on the other stream
+            fetch_counts["pinned_fetches"] += 1
+            fetch_counts["fetched_bytes"] += sum(d.nbytes for d in out)
+        done = torch.cuda.Event()
+        done.record(copy)
+        return host, done
 
     def run(self, iq, block_size: Optional[int] = None) -> BlockOutputs:
         """Stream a whole recording, a chunk graph per ``SCAN_BLOCKS``
@@ -690,11 +753,16 @@ class Receiver:
         graph's static input (through pinned staging), and its outputs come
         back as host numpy arrays (``BlockOutputs`` stacked (blocks, ...,
         out_len)).  The state carries across chunks, so the chunks
-        concatenate bit-identically to one :meth:`run`.  While a profile
-        records, each fetch first waits for the receiver's stream (span
-        ``sdr.receiver.wait``), so the trace tells the device's time apart
-        from the copy's (``sdr.receiver.fetch``); untraced, the first
-        ``.cpu()`` makes that wait itself, as it always has."""
+        concatenate bit-identically to one :meth:`run`.  On the card each
+        span's outputs go straight into one pinned host buffer of the chunk
+        without blocking (:meth:`_run_pinned`, counted in
+        :data:`fetch_counts`), and the host waits once, for the last copy
+        (span ``sdr.receiver.wait``: the receiver's stream and its copy
+        stream), before it makes the numpy views (``sdr.receiver.fetch``).
+        Each chunk is its own allocation, writable and the caller's: a later
+        chunk never overwrites it, and a chunk the caller drops goes back to
+        the caching host allocator.  On the CPU the outputs of
+        :func:`run_blocks` are host memory already."""
         if block_size is None:
             block_size = self.mc.default_block_size(self.with_rds)
         if isinstance(iq, torch.Tensor):
@@ -704,10 +772,13 @@ class Receiver:
             k1 = min(k0 + chunk_blocks, n_blocks)
             chunk = self._as_input(iq[..., k0 * block_size: k1 * block_size],
                                    False)
-            outs = self._run_blocks(chunk, k1 - k0, block_size)
+            if self.device.type == "cuda":
+                outs, done = self._run_pinned(chunk, k1 - k0, block_size)
+            else:
+                outs, done = self._run_blocks(chunk, k1 - k0, block_size), None
             with span("sdr.receiver.wait"):
-                if self.device.type == "cuda" and profiling.recording():
-                    torch.cuda.current_stream(self.device).synchronize()
+                if done is not None:
+                    done.synchronize()
             with span("sdr.receiver.fetch"):
-                host = map_state(lambda a: a.cpu().numpy(), outs)
+                host = map_state(lambda a: a.numpy(), outs)
             yield host

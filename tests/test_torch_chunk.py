@@ -163,6 +163,31 @@ def test_iter_run_on_chunks_equals_run(station, k3, monkeypatch,
     _equal(r.state, ref.state)
 
 
+@pytest.mark.parametrize("chunk_blocks", [3, 5])
+def test_iter_run_on_the_cpu_copies_nothing_to_pinned_memory(
+        station, k3, chunk_blocks):
+    """On the CPU the outputs are host memory already: ``iter_run`` counts
+    no pinned fetch and no fetched byte (``receiver.fetch_counts``), and its
+    chunks (whole chunk graphs, and per-block tails with 5) are ``run``'s,
+    bit for bit, each writable and no other chunk's memory."""
+    iq = station[:10 * SHORT]
+    prx.reset_fetch_counts()
+    r = prx.Receiver(0, True, True, device="cpu")
+    chunks = list(r.iter_run(iq, block_size=SHORT,
+                             chunk_blocks=chunk_blocks))
+    assert prx.fetch_counts == {"pinned_fetches": 0, "fetched_bytes": 0}
+    want = prx.Receiver(0, True, True, device="cpu").run(iq,
+                                                        block_size=SHORT)
+    for arm in ARMS:
+        np.testing.assert_array_equal(
+            np.concatenate([getattr(c, arm) for c in chunks]),
+            np_of(getattr(want, arm)), err_msg=arm)
+    arrays = [(i, a) for i, c in enumerate(chunks) for a in c if a.size]
+    assert all(a.flags.writeable for _, a in arrays)
+    assert not any(np.may_share_memory(a, b) for i, a in arrays
+                   for j, b in arrays if i != j)
+
+
 def test_receive_on_chunks_equals_per_block(station, k3, monkeypatch):
     """``receive()`` of 0.25 s with K=3 (10 whole 115,200-byte blocks:
     three chunk graphs and a block, then the short tail block) against

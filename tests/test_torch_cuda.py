@@ -46,7 +46,10 @@ u8 at C=1 and C=512, float, mode 2, blocks whose byte length is not a
 multiple of 16, a chunk followed by a tail, a host recording through
 pinned staging with ``process``/``run``/``process`` interleaved and
 ``iter_run``, a checkpoint restart between two runs, the time-sharded S=8 run with its warm-up graph (single-shot
-and chunked); a chunk capture made to fail raises.  Mode 3 stereo, on
+and chunked); a chunk capture made to fail raises.  ``iter_run`` fetches
+each span's outputs into one pinned host buffer a chunk: bit-equal to
+``run``, each chunk its own writable memory, one wait and one fetch span
+a chunk.  Mode 3 stereo, on
 float input (K5) and raw u8 (K1 at decimation 3), against the port's
 float64 golden receiver at the JAX package's tolerances (2e-4 on
 fm_demod and mono, 5e-3 on left and right), the one mode no earlier card
@@ -912,6 +915,73 @@ def test_chunk_program_from_host_through_pinned_staging(dev):
         np.testing.assert_array_equal(
             np.concatenate([getattr(c, arm) for c in chunks]),
             getattr(stack(want), arm).cpu().numpy(), err_msg=arm)
+
+
+@pytest.mark.parametrize("chunk_blocks", [16, 35, 64])
+def test_iter_run_fetches_each_span_into_pinned_host_memory(dev,
+                                                            chunk_blocks):
+    """``iter_run`` of 4 channels over 2 chunks and a 5-block tail (35
+    leaves per-block spans in every chunk): each span's outputs go
+    straight into one pinned host buffer of the chunk.  The chunks
+    concatenate to ``run`` fetched to the host bit for bit on every arm,
+    with the same state; every array is writable, pinned and no other
+    chunk's memory, so writing chunk 0 after chunk 2 was drawn leaves the
+    others as they were; ``fetch_counts`` counts each span and its
+    bytes."""
+    bs = MC.default_block_size(True)
+    n = 2 * chunk_blocks + 5
+    iq = np.random.default_rng(45).integers(0, 256, (4, n * bs),
+                                            dtype=np.uint8)
+    ref = prx.Receiver(0, True, True, batch_shape=(4,), device=dev)
+    want = prx.map_state(lambda a: a.cpu().numpy(), ref.run(iq))
+    rx = prx.Receiver(0, True, True, batch_shape=(4,), device=dev)
+    prx.reset_fetch_counts()
+    chunks = list(rx.iter_run(iq, chunk_blocks=chunk_blocks))
+    assert [len(c.mono) for c in chunks] == [chunk_blocks] * 2 + [5]
+    for arm in prx.BlockOutputs._fields:
+        np.testing.assert_array_equal(
+            np.concatenate([getattr(c, arm) for c in chunks]),
+            getattr(want, arm), err_msg=arm)
+    _assert_trees_equal(rx.state, ref.state, "state")
+    arrays = [(i, a) for i, c in enumerate(chunks) for a in c if a.size]
+    assert all(a.flags.writeable and torch.from_numpy(a).is_pinned()
+               for _, a in arrays)
+    assert not any(np.may_share_memory(a, b) for i, a in arrays
+                   for j, b in arrays if i != j)
+    for a in chunks[0]:
+        a[...] = -1.0
+    for arm in prx.BlockOutputs._fields:
+        np.testing.assert_array_equal(
+            np.concatenate([getattr(c, arm) for c in chunks[1:]]),
+            getattr(want, arm)[chunk_blocks:], err_msg=arm)
+    assert prx.fetch_counts == {
+        "pinned_fetches": sum(len(prx.block_spans(len(c.mono)))
+                              for c in chunks),
+        "fetched_bytes": sum(a.nbytes for _, a in arrays)}
+
+
+def test_iter_run_on_the_card_waits_and_fetches_once_a_chunk(dev):
+    """While a profile records, each chunk of ``iter_run`` on the card
+    shows one ``sdr.receiver.wait`` and then one ``sdr.receiver.fetch``
+    span after its spans' replays, and nothing is concatenated on the
+    device: the spans ``device_wait_ms_per_block`` and
+    ``fetch_ms_per_block`` read."""
+    from torch.profiler import ProfilerActivity, profile
+    k = prx.SCAN_BLOCKS
+    bs = MC.default_block_size(True)
+    iq = np.random.default_rng(46).integers(0, 256, (2 * k + 3) * bs,
+                                            dtype=np.uint8)
+    rx = prx.Receiver(0, True, True, device=dev)
+    list(rx.iter_run(iq, chunk_blocks=k + 3))     # every key captured
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        list(rx.iter_run(iq, chunk_blocks=k + 3))
+    names = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.name in ("sdr.program.replay", "sdr.receiver.cat",
+                           "sdr.receiver.wait", "sdr.receiver.fetch")]
+    chunk = ["sdr.receiver.wait", "sdr.receiver.fetch"]
+    assert names == ["sdr.program.replay"] * 4 + chunk \
+        + ["sdr.program.replay"] + chunk
 
 
 def test_chunk_checkpoint_restart_mid_recording(dev, tmp_path):

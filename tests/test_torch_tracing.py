@@ -90,6 +90,26 @@ def test_spans_are_siblings_in_stage_order(receiver, station):
     assert all(e <= s.time_range.start for e, s in zip(ends, spans[1:]))
 
 
+@pytest.mark.parametrize("chunk_blocks", [2, 3])
+def test_each_chunk_waits_and_fetches_once(receiver, station, chunk_blocks):
+    """One ``sdr.receiver.wait`` and then one ``sdr.receiver.fetch`` a
+    chunk, after the chunk's replays (a chunk graph, and with 3 a
+    per-block tail): the spans ``device_wait_ms_per_block`` and
+    ``fetch_ms_per_block`` read."""
+    list(receiver.iter_run(station, block_size=BS, chunk_blocks=chunk_blocks))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        list(receiver.iter_run(station, block_size=BS,
+                               chunk_blocks=chunk_blocks))
+    names = [e.name for e in _port_spans(prof)
+             if e.name in ("sdr.program.replay", "sdr.receiver.wait",
+                           "sdr.receiver.fetch")]
+    each = ["sdr.receiver.wait", "sdr.receiver.fetch"]
+    replays = [len(prx.block_spans(min(chunk_blocks, 4 - b)))
+               for b in range(0, 4, chunk_blocks)]
+    assert names == [n for r in replays
+                     for n in ["sdr.program.replay"] * r + each]
+
+
 def test_a_new_key_adds_one_capture_around_its_load(receiver, station):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         receiver.process(station[:BS])
